@@ -1,0 +1,100 @@
+"""The torch limb tier against zk_tpu.fields.device, limb for limb.
+
+Inputs are seeded with numpy, encoded by the JAX package, and handed to
+the port through zk_tpu_torch.interop; every comparison is exact (field
+arithmetic has no rounding: tolerance 0).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from zk_tpu.fields import BLS12_377_FR, BLS12_381_FR, GOLDILOCKS
+from zk_tpu.fields import device as jdev
+from zk_tpu_torch import interop
+from zk_tpu_torch.fields import device as tdev
+
+torch.set_num_threads(1)
+
+FIELDS = [GOLDILOCKS, BLS12_381_FR, BLS12_377_FR]
+N = 256
+
+
+def _ints(field, seed, n=N):
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(field.n_bytes + 8), "big") % field.p for _ in range(n)]
+    vals[:3] = [0, 1, field.p - 1]  # edges
+    return vals
+
+
+def _pair(field, seed):
+    """The same (L, N) Montgomery limbs in both packages."""
+    j = jdev.encode_ints(field, _ints(field, seed))
+    return j, interop.limbs_from_numpy(np.asarray(j))
+
+
+def _same(t, j):
+    np.testing.assert_array_equal(interop.limbs_to_numpy(t), np.asarray(j))
+
+
+OPS = {
+    "add_mod": (lambda d, f, a, b, r: d.add_mod(f, a, b)),
+    "sub_mod": (lambda d, f, a, b, r: d.sub_mod(f, a, b)),
+    "neg_mod": (lambda d, f, a, b, r: d.neg_mod(f, a)),
+    "mont_mul": (lambda d, f, a, b, r: d.mont_mul(f, a, b)),
+    "lerp": (lambda d, f, a, b, r: d.lerp(f, a, b, r)),
+    "to_mont": (lambda d, f, a, b, r: d.to_mont(f, a)),
+    "from_mont": (lambda d, f, a, b, r: d.from_mont(f, a)),
+    "sum_mod": (lambda d, f, a, b, r: d.sum_mod(f, a, -1)),
+}
+
+
+@pytest.mark.parametrize("op", list(OPS))
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_op_matches_jax(field, op):
+    ja, ta = _pair(field, 1)
+    jb, tb = _pair(field, 2)
+    rj = jdev.scalar(field, 0x1234567890ABCDEF % field.p)
+    rt = interop.limbs_from_numpy(np.asarray(rj))
+    want = OPS[op](jdev, field, ja, jb, rj)
+    got = OPS[op](tdev, field, ta, tb, rt)
+    assert got.dtype == torch.int32
+    _same(got, want)
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_encode_decode_match_jax(field):
+    vals = _ints(field, 3)
+    for mont in (True, False):
+        t = tdev.encode_ints(field, vals, mont=mont)
+        _same(t, jdev.encode_ints(field, vals, mont=mont))
+        assert tdev.decode_ints(field, t, mont=mont) == vals
+    t = tdev.encode_ints(field, vals)
+    assert tdev.decode_bytes_be(field, t) == field.elements_to_bytes(vals)
+    assert tdev.decode_bytes_be(field, t) == jdev.decode_bytes_be(field, np.asarray(interop.limbs_to_numpy(t)))
+    back = tdev.encode_bytes_be(field, field.elements_to_bytes(vals))
+    assert torch.equal(back, t)
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_consts_match_jax(field):
+    for v in (0, 1, 2, field.p - 1, 12345):
+        np.testing.assert_array_equal(tdev.const_limbs(field, v), jdev.const_limbs(field, v))
+        _same(tdev.scalar(field, v), jnp.asarray(jdev.scalar(field, v)))
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_renorm_wide_against_host_ints(field):
+    """Wide int64 column sums of many Montgomery limbs reduce to the exact
+    sum, canonical and Montgomery."""
+    rng = np.random.default_rng(4)
+    cols = torch.from_numpy(rng.integers(0, 1 << 40, size=(field.n_limbs, 5), dtype=np.int64))
+    for c in range(5):
+        v = sum(int(cols[j, c]) << (16 * j) for j in range(field.n_limbs))
+        canon = tdev.renorm_wide(field, cols[:, c : c + 1], mont_out=False)
+        mont = tdev.renorm_wide(field, cols[:, c : c + 1], mont_out=True)
+        rinv = pow(field.R, -1, field.p)
+        assert tdev.decode_ints(field, canon, mont=False) == [v * rinv % field.p]
+        assert tdev.decode_ints(field, mont) == [v * rinv % field.p]

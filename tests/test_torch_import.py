@@ -1,0 +1,93 @@
+"""zk_tpu_torch imports without JAX and never falls back from a kernel."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from zk_tpu_torch import _cuda
+from zk_tpu_torch.fields import BLS12_381_FR as FR
+from zk_tpu_torch.sumcheck import capacity as C
+from zk_tpu_torch.transcript import device as tdev
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys\n"
+        "import zk_tpu_torch, zk_tpu_torch.interop, zk_tpu_torch.sumcheck.capacity\n"
+        "import zk_tpu_torch.transcript.device, zk_tpu_torch.poly.univariate\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "assert not bad, bad\n"
+        "assert zk_tpu_torch._cuda._LIB is None  # importing builds nothing\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    assert _cuda.find_nvcc() is None
+    with pytest.raises(_cuda.KernelBuildError, match="nvcc not found"):
+        _cuda.build()
+
+
+def test_build_is_keyed_by_sources(monkeypatch, tmp_path):
+    a = _cuda._digest()
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for p in _cuda.CSRC.glob("*.cu*"):
+        (src / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_cuda, "CSRC", src)
+    assert _cuda._digest() == a
+    (src / "keccak.cu").write_text((src / "keccak.cu").read_text() + "\n// edit\n")
+    assert _cuda._digest() != a
+
+
+def test_launch_counter_reset_and_count():
+    _cuda.reset_launches()
+    assert set(_cuda.launches()) == set(_cuda.KERNELS)
+    assert all(v == 0 for v in _cuda.launches().values())
+    _cuda.count_launch("fold_multi")
+    assert _cuda.launches()["fold_multi"] == 1
+    _cuda.reset_launches()
+
+
+def test_cpu_wrappers_do_not_count_launches():
+    _cuda.reset_launches()
+    L = FR.n_limbs
+    stack = torch.zeros((1, L, 8), dtype=torch.int32)
+    r = torch.zeros((L, 1), dtype=torch.int32)
+    C.fold_multi(FR, stack, 8, r, out=stack)
+    C.round_sums(FR, 1, stack, 8)
+    C.fold_halfsums(FR, stack, 8, r, out=stack)
+    z = torch.zeros(25, dtype=torch.int64)
+    tdev.keccak_f1600_device(z, z)
+    assert all(v == 0 for v in _cuda.launches().values())
+
+
+@pytest.mark.parametrize("kernel", ["fold_multi", "round_sums", "fold_halfsums", "keccak"])
+def test_no_fallback_on_other_devices(kernel):
+    """A tensor that is neither on the CPU nor on a CUDA card raises; it
+    never takes the plain version."""
+    L = FR.n_limbs
+    stack = torch.zeros((1, L, 8), dtype=torch.int32, device="meta")
+    r = torch.zeros((L, 1), dtype=torch.int32, device="meta")
+    z = torch.zeros(25, dtype=torch.int64, device="meta")
+    calls = {
+        "fold_multi": lambda: C.fold_multi(FR, stack, 8, r, out=stack),
+        "round_sums": lambda: C.round_sums(FR, 1, stack, 8),
+        "fold_halfsums": lambda: C.fold_halfsums(FR, stack, 8, r, out=stack),
+        "keccak": lambda: tdev.keccak_f1600_device(z, z),
+    }
+    with pytest.raises(ValueError, match="unsupported device"):
+        calls[kernel]()

@@ -1,0 +1,126 @@
+"""The port's device sponge against zk_tpu's host Transcript and device
+sponge, byte for byte (tolerance 0)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from zk_tpu.fields import BLS12_377_FR, BLS12_381_FR, GOLDILOCKS
+from zk_tpu.transcript import Transcript
+from zk_tpu.transcript import device as jt
+from zk_tpu.transcript.keccak import Keccak256, keccak256, keccak_f1600
+from zk_tpu_torch import interop
+from zk_tpu_torch.fields import device as tdev
+from zk_tpu_torch.sumcheck import kernels as K
+from zk_tpu_torch.transcript import device as tt
+
+torch.set_num_threads(1)
+
+
+def _state(lanes):
+    lo = torch.tensor([l & 0xFFFFFFFF for l in lanes], dtype=torch.int64)
+    hi = torch.tensor([l >> 32 for l in lanes], dtype=torch.int64)
+    return lo, hi
+
+
+def _lanes(lo, hi):
+    return [a | (b << 32) for a, b in zip(lo.tolist(), hi.tolist())]
+
+
+def _fresh():
+    z = torch.zeros(25, dtype=torch.int64)
+    return z, z, torch.zeros(tt.RATE, dtype=torch.int64), 0
+
+
+def test_keccak_plain_matches_xla_and_host():
+    rng = np.random.default_rng(5)
+    states = [[int(x) for x in rng.integers(0, 1 << 63, size=25, dtype=np.uint64)] for _ in range(4)]
+    lo = torch.stack([_state(s)[0] for s in states])
+    hi = torch.stack([_state(s)[1] for s in states])
+    glo, ghi = tt.keccak_f1600_device(lo, hi)  # CPU tensors: the plain version
+    for i, s in enumerate(states):
+        assert _lanes(glo[i], ghi[i]) == keccak_f1600(list(s))
+    xlo, xhi = jt._keccak_f1600_xla(jnp.asarray(lo[0].numpy().astype(np.uint32)), jnp.asarray(hi[0].numpy().astype(np.uint32)))
+    np.testing.assert_array_equal(glo[0].numpy(), np.asarray(xlo).astype(np.int64))
+    np.testing.assert_array_equal(ghi[0].numpy(), np.asarray(xhi).astype(np.int64))
+
+
+def test_empty_digest_known_answer():
+    digest = tt.squeeze(*_fresh())
+    assert bytes(digest.tolist()) == bytes.fromhex(
+        "c5d2460186f7233c927e7db2dcc703c0e500b653ca82273b7bfad8045d85a470"
+    )
+    assert bytes(digest.tolist()) == keccak256(b"")
+
+
+@pytest.mark.parametrize("sizes", [(1, 31, 32), (135, 1, 136), (137, 272, 300), (0, 135)])
+def test_absorb_squeeze_matches_host(sizes):
+    rng = np.random.default_rng(sum(sizes))
+    host = Keccak256()
+    lo, hi, buf, pos = _fresh()
+    for n in sizes:
+        data = rng.integers(0, 256, size=n, dtype=np.uint8).tobytes()
+        host.update(data)
+        lo, hi, buf, pos = tt.absorb(lo, hi, buf, pos, torch.tensor(list(data), dtype=torch.int64))
+        assert bytes(tt.squeeze(lo, hi, buf, pos).tolist()) == host.digest()
+
+
+@pytest.mark.parametrize("field", [GOLDILOCKS, BLS12_381_FR, BLS12_377_FR], ids=lambda f: f.name)
+def test_challenges_through_exported_state(field):
+    """A host transcript hands its sponge to the port mid-stream (export),
+    both sample the same challenges, and the state comes back (import)."""
+    host, mirror = Transcript(), Transcript()
+    for t in (host, mirror):
+        t.append(b"prefix bytes of some length" * 7)
+    lo, hi, buf, pos = tt.state_to_device(*host.export_state())
+    for step in range(3):
+        data = bytes(range(step * 40, step * 40 + 64))
+        mirror.append(data)
+        want = mirror.sample_field_element(field)
+        lo, hi, buf, pos = tt.absorb(lo, hi, buf, pos, torch.tensor(list(data)))
+        lo, hi, buf, pos, digest = tt.sample_challenge(lo, hi, buf, pos)
+        mont, canon = tt.challenge_from_digest(field, digest)
+        assert tdev.decode_ints(field, canon, mont=False) == [want]
+        assert tdev.decode_ints(field, mont) == [want]
+    host.import_state(*tt.state_to_host(lo, hi, buf, pos))
+    assert host.sample_challenge() == mirror.sample_challenge()
+
+
+def test_state_matches_jax_state_to_device():
+    host = Transcript()
+    host.append(b"x" * 150)
+    lanes, pend = host.export_state()
+    jlo, jhi, jbuf, jpos = jt.state_to_device(lanes, pend)
+    lo, hi, buf, pos = interop.transcript_state_from_jax(jlo, jhi, jbuf, jpos)
+    tlo, thi, tbuf, tpos = tt.state_to_device(lanes, pend)
+    assert torch.equal(lo, tlo) and torch.equal(hi, thi) and torch.equal(buf, tbuf) and pos == tpos
+    back = interop.transcript_state_to_jax(tlo, thi, tbuf, tpos)
+    for a, b in zip(back[:3], (jlo, jhi, jbuf)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+@pytest.mark.parametrize("field", [GOLDILOCKS, BLS12_381_FR], ids=lambda f: f.name)
+def test_serialize_canonical_matches_host_bytes(field):
+    vals = [0, 1, field.p - 1, 0xDEADBEEF % field.p, (field.p * 2) // 3]
+    t = tdev.encode_ints(field, vals, mont=False)
+    assert bytes(tt.serialize_canonical(field, t).tolist()) == field.elements_to_bytes(vals)
+
+
+@pytest.mark.parametrize("field", [GOLDILOCKS, BLS12_381_FR], ids=lambda f: f.name)
+def test_transcript_round_matches_host_round(field):
+    """One Fiat-Shamir round on the port's sponge equals the host's:
+    the canonical sums, their bytes and the challenge."""
+    rng = np.random.default_rng(8)
+    partials = torch.from_numpy(rng.integers(0, 1 << 30, size=(2, field.n_limbs, 3), dtype=np.int64))
+    sums = K.decode_sums(field, partials)
+    host = Transcript()
+    host.append(field.to_bytes_be(123))
+    lo, hi, buf, pos = tt.state_to_device(*host.export_state())
+    host.append(field.elements_to_bytes(sums))
+    want = host.sample_field_element(field)
+    lo, hi, buf, total, canon, mont = K.transcript_round(field, pos, lo, hi, buf, partials)
+    assert tdev.decode_ints(field, total, mont=False) == sums
+    assert tdev.decode_ints(field, canon, mont=False) == [want]
+    assert tdev.decode_ints(field, mont) == [want]

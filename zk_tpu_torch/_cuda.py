@@ -1,0 +1,141 @@
+"""Build, load and count the hand-written CUDA kernels (csrc/*.cu).
+
+Every ``.cu`` file under ``csrc/`` is compiled by ONE ``nvcc`` call for
+``sm_90a`` into a shared library with a plain C interface, loaded with
+ctypes.  The library is built at first use (never at import, so the CPU
+test suite imports this package without a CUDA toolchain) into
+``zk_tpu_torch/_build/``, keyed by a hash of the sources and flags, so an
+edited source always rebuilds.  There is no fallback: a missing ``nvcc``
+or a failed build raises with the compiler's stderr.
+
+Each kernel wrapper adds one to its entry in the launch counter exactly
+where it launches its kernel; ``reset_launches``/``launches`` let a run
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+)
+
+KERNELS = ("fold_multi", "round_sums", "fold_halfsums", "keccak_f1600")
+
+_LOCK = threading.Lock()
+_LIB = None
+_LAUNCHES = {name: 0 for name in KERNELS}
+last_build_seconds: float | None = None
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused the sources."""
+
+
+def reset_launches() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def launches() -> dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def count_launch(name: str) -> None:
+    _LAUNCHES[name] += 1
+
+
+def find_nvcc() -> str | None:
+    """nvcc from $CUDA_HOME/bin (default /usr/local/cuda), else from PATH."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(cand) and os.access(cand, os.X_OK):
+        return cand
+    return shutil.which("nvcc")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into _build/libzk_kernels_<hash>.so (cached)."""
+    global last_build_seconds
+    import time
+
+    out = BUILD_DIR / f"libzk_kernels_{_digest()}.so"
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise KernelBuildError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the CUDA "
+            "kernels of zk_tpu_torch are built from csrc/ with nvcc for sm_90a"
+        )
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    last_build_seconds = time.perf_counter() - t0
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        so = ctypes.CDLL(str(build()))
+        P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        so.zk_fold_multi.argtypes = [I, I, P, I64, P, I64, I64, P, P, P]
+        so.zk_fold_halfsums.argtypes = [I, P, I64, P, I64, I64, I64, I, P, P, P, P]
+        so.zk_round_sums.argtypes = [I, I, I, P, I64, I64, I64, I64, I, P, P, P]
+        so.zk_keccak_f1600.argtypes = [P, P, P, P, I, P]
+        for fn in (so.zk_fold_multi, so.zk_fold_halfsums, so.zk_round_sums, so.zk_keccak_f1600):
+            fn.restype = ctypes.c_int
+        _LIB = so
+        return so
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero cudaGetLastError() returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error code {err}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

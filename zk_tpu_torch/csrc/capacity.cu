@@ -1,0 +1,246 @@
+// The sumcheck table kernels: fold_multi, round_sums, fold_halfsums.
+//
+// Replace the Pallas kernels of zk_tpu/sumcheck/capacity.py:
+//   fold_multi    <- _fold_multi_cap   (MLE evaluation, up to 4 variables per pass)
+//   round_sums    <- _round_sums_cap   (all D+1 round-polynomial sums)
+//   fold_halfsums <- _fold_halfsums_cap (fused degree-1 round: fold + next sums)
+//
+// Layout: a stack is (k, L, cap) 16-bit limbs in 32-bit words; the live
+// prefix [0, size) of each row holds the table.  Folds are in place
+// (out == in) or write a fresh buffer (the first pass of an evaluation or
+// a prove, so the caller's table survives).
+//
+// What bounds them on an H100: at L = 16 each table element is 64 bytes
+// and a fold costs one Montgomery product (~128 32-bit multiply-adds) plus
+// two modular subtractions, i.e. ~6 integer ops per byte; the card issues
+// far more than that per byte of HBM, so the folds are close to the
+// memory-bound side and fold_multi's 2^f-input tree (one HBM pass for f
+// variables) matters more than the multiply count.  Design: one thread per
+// output element, limb-major addressing so that neighbouring threads read
+// neighbouring words of each limb row (coalesced), all limb math unrolled
+// in registers.  Nothing carries between blocks: a sums kernel's block b
+// owns the contiguous chunk [b*chunk, (b+1)*chunk) of pair indices, keeps
+// per-thread u32 limb accumulators, and writes its own u64 partial sums
+// (P, L, G); the transcript round adds the G partials in int64.
+//
+// Accumulator bound (replaces the TPU's 2^15-grid-steps argument,
+// capacity.py:33-38): a thread adds at most ceil(chunk / blockDim) terms,
+// each a limb < 2^16, to a u32 — safe for up to 2^16 terms, which the
+// wrapper enforces (chunk <= 2^16 * THREADS).  The block sum is u64: at
+// most chunk * 2^16 < 2^40.  Integer sums are exact in any order, so the
+// partials are bit-identical to the plain torch version's.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "field.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+
+template <int NW, int F>
+__global__ void __launch_bounds__(THREADS)
+fold_multi_kernel(const uint32_t* in, int64_t in_stride, uint32_t* out, int64_t out_stride,
+                  int64_t out_n, const uint32_t* rs, FieldParams<NW> fp) {
+  constexpr int M = 1 << F;
+  uint32_t r[F][NW];
+#pragma unroll
+  for (int l = 0; l < F; ++l) load_scalar<NW>(r[l], rs, F, l);
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < out_n;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    uint32_t x[M][NW];
+#pragma unroll
+    for (int j = 0; j < M; ++j) load_elem<NW>(x[j], in, in_stride, e + j * out_n);
+    // level l pairs j with j + 2^(F-1-l) at r_l: consecutive MSB folds
+#pragma unroll
+    for (int l = 0, m = M; l < F; ++l, m >>= 1) {
+#pragma unroll
+      for (int j = 0; j < m / 2; ++j) lerp<NW>(x[j], x[j], x[j + m / 2], r[l], fp);
+    }
+    store_elem<NW>(out, out_stride, e, x[0]);
+  }
+}
+
+template <int NW>
+__global__ void __launch_bounds__(THREADS)
+fold_halfsums_kernel(const uint32_t* in, int64_t in_stride, uint32_t* out, int64_t out_stride,
+                     int64_t half, int64_t chunk, const uint32_t* rp, FieldParams<NW> fp,
+                     unsigned long long* partials, int G) {
+  constexpr int L = 2 * NW;
+  uint32_t r[NW];
+  load_scalar<NW>(r, rp, 1, 0);
+  uint32_t acc[2 * L];
+#pragma unroll
+  for (int k = 0; k < 2 * L; ++k) acc[k] = 0;
+  const int64_t quarter = half / 2;
+  const int64_t beg = (int64_t)blockIdx.x * chunk;
+  const int64_t end = beg + chunk < half ? beg + chunk : half;
+  for (int64_t e = beg + threadIdx.x; e < end; e += blockDim.x) {
+    uint32_t a[NW], b[NW];
+    load_elem<NW>(a, in, in_stride, e);
+    load_elem<NW>(b, in, in_stride, e + half);
+    lerp<NW>(a, a, b, r, fp);
+    store_elem<NW>(out, out_stride, e, a);
+    // the folded table's halves are the next round's p(0) and p(1)
+    const uint32_t hi = e >= quarter ? 0xFFFFFFFFu : 0u;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const uint32_t l0 = a[w] & 0xFFFFu, l1 = a[w] >> 16;
+      acc[2 * w] += l0 & ~hi;
+      acc[2 * w + 1] += l1 & ~hi;
+      acc[L + 2 * w] += l0 & hi;
+      acc[L + 2 * w + 1] += l1 & hi;
+    }
+  }
+  block_reduce_store<2 * L>(acc, partials, G);
+}
+
+template <int NW, int D, int K>
+__global__ void __launch_bounds__(THREADS)
+round_sums_kernel(const uint32_t* stack, int64_t fac_stride, int64_t row_stride, int64_t half,
+                  int64_t chunk, FieldParams<NW> fp, unsigned long long* partials, int G) {
+  constexpr int L = 2 * NW;
+  uint32_t acc[(D + 1) * L];
+#pragma unroll
+  for (int k = 0; k < (D + 1) * L; ++k) acc[k] = 0;
+  const int64_t beg = (int64_t)blockIdx.x * chunk;
+  const int64_t end = beg + chunk < half ? beg + chunk : half;
+  for (int64_t e = beg + threadIdx.x; e < end; e += blockDim.x) {
+    uint32_t left[K][NW], right[K][NW];
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      load_elem<NW>(left[t], stack + t * fac_stride, row_stride, e);
+      load_elem<NW>(right[t], stack + t * fac_stride, row_stride, e + half);
+    }
+    // point 0 takes the left halves, point 1 the right (no multiply),
+    // point i >= 2 lerps at the constant i; factors multiply across
+#pragma unroll
+    for (int pt = 0; pt <= D; ++pt) {
+      uint32_t prod[NW], ev[NW];
+#pragma unroll
+      for (int t = 0; t < K; ++t) {
+        if (pt == 0) {
+#pragma unroll
+          for (int w = 0; w < NW; ++w) ev[w] = left[t][w];
+        } else if (pt == 1) {
+#pragma unroll
+          for (int w = 0; w < NW; ++w) ev[w] = right[t][w];
+        } else {
+          lerp<NW>(ev, left[t], right[t], fp.pts[pt], fp);
+        }
+        if (t == 0) {
+#pragma unroll
+          for (int w = 0; w < NW; ++w) prod[w] = ev[w];
+        } else {
+          mont_mul<NW>(prod, prod, ev, fp);
+        }
+      }
+      acc_limbs<NW>(acc + pt * L, prod);
+    }
+  }
+  block_reduce_store<(D + 1) * L>(acc, partials, G);
+}
+
+int grid_for(int64_t n) {
+  int64_t blocks = (n + THREADS - 1) / THREADS;
+  const int64_t cap = 132 * 16;  // enough resident waves on 132 SMs
+  return (int)(blocks < 1 ? 1 : (blocks > cap ? cap : blocks));
+}
+
+template <int NW>
+int fold_multi_nw(int f, const uint32_t* in, int64_t in_stride, uint32_t* out,
+                  int64_t out_stride, int64_t out_n, const uint32_t* rs, const uint32_t* params,
+                  cudaStream_t s) {
+  const FieldParams<NW> fp = load_params<NW>(params);
+  const int grid = grid_for(out_n);
+  switch (f) {
+    case 1: fold_multi_kernel<NW, 1><<<grid, THREADS, 0, s>>>(in, in_stride, out, out_stride, out_n, rs, fp); break;
+    case 2: fold_multi_kernel<NW, 2><<<grid, THREADS, 0, s>>>(in, in_stride, out, out_stride, out_n, rs, fp); break;
+    case 3: fold_multi_kernel<NW, 3><<<grid, THREADS, 0, s>>>(in, in_stride, out, out_stride, out_n, rs, fp); break;
+    case 4: fold_multi_kernel<NW, 4><<<grid, THREADS, 0, s>>>(in, in_stride, out, out_stride, out_n, rs, fp); break;
+    default: return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int NW, int D, int K>
+int round_sums_launch(const uint32_t* stack, int64_t fac_stride, int64_t row_stride,
+                      int64_t half, int64_t chunk, int G, const FieldParams<NW>& fp,
+                      unsigned long long* partials, cudaStream_t s) {
+  round_sums_kernel<NW, D, K><<<G, THREADS, 0, s>>>(stack, fac_stride, row_stride, half, chunk,
+                                                     fp, partials, G);
+  return (int)cudaGetLastError();
+}
+
+template <int NW>
+int round_sums_nw(int D, int K, const uint32_t* stack, int64_t fac_stride, int64_t row_stride,
+                  int64_t half, int64_t chunk, int G, const uint32_t* params,
+                  unsigned long long* partials, cudaStream_t s) {
+  const FieldParams<NW> fp = load_params<NW>(params);
+#define ZK_RS(d, k)                                                                      \
+  if (D == d && K == k)                                                                  \
+    return round_sums_launch<NW, d, k>(stack, fac_stride, row_stride, half, chunk, G, fp, \
+                                       partials, s);
+  ZK_RS(1, 1) ZK_RS(2, 1) ZK_RS(2, 2) ZK_RS(3, 1) ZK_RS(3, 2) ZK_RS(3, 3)
+#undef ZK_RS
+  return -1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Fold f MSB variables: out[e] = tree-lerp of in[e + j * out_n], j < 2^f.
+// rs: (L, f) Montgomery limbs on the device.  Returns cudaGetLastError(),
+// or -1 for an unsupported (L, f).
+int zk_fold_multi(int L, int f, const void* in, int64_t in_stride, void* out, int64_t out_stride,
+                  int64_t out_n, const void* rs, const void* params, void* stream) {
+  auto s = (cudaStream_t)stream;
+  auto i = (const uint32_t*)in;
+  auto o = (uint32_t*)out;
+  auto r = (const uint32_t*)rs;
+  auto p = (const uint32_t*)params;
+  if (L == 4) return fold_multi_nw<2>(f, i, in_stride, o, out_stride, out_n, r, p, s);
+  if (L == 16) return fold_multi_nw<8>(f, i, in_stride, o, out_stride, out_n, r, p, s);
+  return -1;
+}
+
+// Fused degree-1 round: out[e] = lerp(in[e], in[e + half], r) for e < half,
+// and the (2, L, G) u64 partial limb sums of out[0, half/2) and
+// out[half/2, half).  Block b owns e in [b * chunk, (b + 1) * chunk).
+int zk_fold_halfsums(int L, const void* in, int64_t in_stride, void* out, int64_t out_stride,
+                     int64_t half, int64_t chunk, int G, const void* r, const void* params,
+                     void* partials, void* stream) {
+  auto s = (cudaStream_t)stream;
+  auto i = (const uint32_t*)in;
+  auto o = (uint32_t*)out;
+  auto rp = (const uint32_t*)r;
+  auto acc = (unsigned long long*)partials;
+  if (L == 4) {
+    fold_halfsums_kernel<2><<<G, THREADS, 0, s>>>(i, in_stride, o, out_stride, half, chunk, rp,
+                                                  load_params<2>((const uint32_t*)params), acc, G);
+  } else if (L == 16) {
+    fold_halfsums_kernel<8><<<G, THREADS, 0, s>>>(i, in_stride, o, out_stride, half, chunk, rp,
+                                                  load_params<8>((const uint32_t*)params), acc, G);
+  } else {
+    return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Round-polynomial sums of a K-factor product at the points 0..D over the
+// pairs (e, e + half): (D+1, L, G) u64 partial limb sums.
+int zk_round_sums(int L, int D, int K, const void* stack, int64_t fac_stride,
+                  int64_t row_stride, int64_t half, int64_t chunk, int G, const void* params,
+                  void* partials, void* stream) {
+  auto s = (cudaStream_t)stream;
+  auto st = (const uint32_t*)stack;
+  auto p = (const uint32_t*)params;
+  auto acc = (unsigned long long*)partials;
+  if (L == 4) return round_sums_nw<2>(D, K, st, fac_stride, row_stride, half, chunk, G, p, acc, s);
+  if (L == 16) return round_sums_nw<8>(D, K, st, fac_stride, row_stride, half, chunk, G, p, acc, s);
+  return -1;
+}
+
+}  // extern "C"

@@ -1,0 +1,48 @@
+"""The reference package's state (numpy arrays) <-> the port's tensors.
+
+JAX tables are (L, N) or (k, L, N) uint32 arrays of 16-bit limbs; the
+port's are int32 tensors with the same limbs.  The device sponge state is
+(25,) lane-half arrays, a (136,) byte buffer and a position in both
+packages (uint32 there, int64 here).  Both directions copy values only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from zk_tpu.fields.field import Field
+from zk_tpu_torch.poly.mle import MLE
+
+
+def limbs_from_numpy(arr, device="cpu") -> torch.Tensor:
+    """uint32 limb array (values < 2^16) -> int32 tensor."""
+    a = np.asarray(arr)
+    if a.size and int(a.max()) >= 1 << 16:
+        raise ValueError("limbs must be < 2^16")
+    return torch.from_numpy(np.ascontiguousarray(a.astype(np.int32))).to(device)
+
+
+def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int32 limb tensor -> uint32 numpy array."""
+    return t.cpu().numpy().astype(np.uint32)
+
+
+def mle_from_jax(field: Field, n_vars: int, np_data, device="cpu") -> MLE:
+    """An MLE over the same (L, 2^n) Montgomery limbs as a JAX MLE's data."""
+    data = limbs_from_numpy(np_data, device)
+    if tuple(data.shape) != (field.n_limbs, 1 << n_vars):
+        raise ValueError(f"expected ({field.n_limbs}, {1 << n_vars}) limbs, got {tuple(data.shape)}")
+    return MLE(field, n_vars, data)
+
+
+def transcript_state_from_jax(lo, hi, buf, pos: int, device="cpu"):
+    """JAX device-sponge state (uint32 arrays) -> (lo, hi, buf, pos) int64."""
+    t = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)  # noqa: E731
+    return t(lo), t(hi), t(buf), int(pos)
+
+
+def transcript_state_to_jax(lo, hi, buf, pos: int):
+    """Port sponge state -> (lo, hi, buf, pos) uint32 numpy arrays."""
+    n = lambda t: t.cpu().numpy().astype(np.uint32)  # noqa: E731
+    return n(lo), n(hi), n(buf), int(pos)

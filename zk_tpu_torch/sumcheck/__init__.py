@@ -1,0 +1,305 @@
+"""Non-interactive sumcheck via Fiat-Shamir — prover and verifier.
+
+Counterpart of ``zk_tpu.sumcheck`` (sumcheck/src/{lib,prover,verifier}.rs),
+with the same proofs, challenges and serialization.  Prover tiers, picked
+per table:
+
+  * device transcript (default on CUDA for p > 2^32): every round on the
+    device — round sums, Fiat-Shamir absorb/squeeze, fused fold — with one
+    host sync at the end of the prove (``capacity.run_device_rounds``);
+  * synced (device_transcript=False): the same table kernels, but the
+    sums come to the host every round and the host Transcript absorbs and
+    squeezes — the differential tier for the device transcript;
+  * host: tables at or below ``tail_size`` finish in exact Python ints.
+
+Tables larger than the tail run the degree-1 single-factor rounds only;
+other (degree, factors) shapes need the general fold kernel (ROADMAP,
+"_fold_cap with the general rounds") and raise NotImplementedError.
+
+Error semantics match the reference: a failed round check raises
+SumcheckError (verifier.rs:61-66), a failed oracle check returns False.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from zk_tpu.fields.field import Field
+from zk_tpu.transcript import Transcript
+from zk_tpu_torch.fields import device as dev
+from zk_tpu_torch.poly.univariate import UnivariatePolynomial
+from zk_tpu_torch.sumcheck import capacity as C
+from zk_tpu_torch.sumcheck import kernels as K
+from zk_tpu_torch.transcript import device as tdev
+
+
+class SumcheckError(Exception):
+    """Raised where the reference returns Err(&'static str)."""
+
+
+@dataclass
+class SumcheckProof:
+    """sumcheck/src/lib.rs:8-11."""
+
+    sum: int
+    round_polys: list[list[int]]
+
+
+@dataclass
+class SubClaim:
+    """sumcheck/src/lib.rs:13-20: the deferred oracle check
+    sum == initial_poly(challenges)."""
+
+    sum: int
+    challenges: list[int]
+
+
+_ABSORB_CHUNK = 1 << 20  # elements per transcript-absorb fetch
+
+
+def absorb_poly(transcript: Transcript, poly) -> None:
+    """Absorb a polynomial's canonical bytes (prover.rs:17 / the verifier's
+    poly binding) in 2^20-element chunks (canonical BE bytes concatenate
+    per element, so chunking is byte-identical)."""
+    for p in poly.polynomials:
+        n = p.data.shape[-1]
+        for a in range(0, n, _ABSORB_CHUNK):
+            transcript.append(dev.decode_bytes_be(poly.field, p.data[:, a : a + _ABSORB_CHUNK]))
+
+
+def _decode_host_tables(field: Field, tables) -> K.HostTables:
+    return K.HostTables(field, [[dev.decode_ints(field, t) for t in tables]])
+
+
+class SumcheckProver:
+    """sumcheck/src/prover.rs:9-69.  max_var_degree plays the role of the
+    reference's MAX_VAR_DEGREE (round-poly sample points minus one) and
+    defaults to the factor count."""
+
+    @staticmethod
+    def prove(
+        poly,
+        sum: int,
+        max_var_degree: int | None = None,
+        tail_size: int | None = None,
+        device_transcript: bool | None = None,
+    ) -> SumcheckProof:
+        """Prove, binding the initial poly bytes (prover.rs:15-20)."""
+        transcript = Transcript()
+        absorb_poly(transcript, poly)
+        proof, _ = SumcheckProver._prove_internal(
+            poly, sum, transcript, max_var_degree, tail_size, device_transcript
+        )
+        return proof
+
+    @staticmethod
+    def prove_partial(
+        poly,
+        sum: int,
+        max_var_degree: int | None = None,
+        tail_size: int | None = None,
+        device_transcript: bool | None = None,
+    ) -> tuple[SumcheckProof, list[int]]:
+        """Prove without binding the initial poly (prover.rs:24-30);
+        returns (proof, challenges)."""
+        return SumcheckProver._prove_internal(
+            poly, sum, Transcript(), max_var_degree, tail_size, device_transcript
+        )
+
+    @staticmethod
+    def _prove_internal(
+        poly,
+        sum: int,
+        transcript: Transcript,
+        max_var_degree: int | None = None,
+        tail_size: int | None = None,
+        device_transcript: bool | None = None,
+    ) -> tuple[SumcheckProof, list[int]]:
+        """prover.rs:33-69 round loop across the three tiers."""
+        field: Field = poly.field
+        degree = max_var_degree if max_var_degree is not None else poly.max_degree
+        tail = K.TAIL_SIZE if tail_size is None else tail_size
+        transcript.append(field.to_bytes_be(sum))
+
+        round_polys: list[list[int]] = []
+        challenges: list[int] = []
+        n_vars = poly.n_vars
+        size = 1 << n_vars
+        tables = [p.data for p in poly.polynomials]
+        device = tables[0].device
+        if device_transcript is None:
+            device_transcript = device.type == "cuda" and field.p > (1 << 32)
+        host_tables = None
+
+        if size > tail and n_vars > 0:
+            if (degree, len(tables)) != (1, 1):
+                raise NotImplementedError(
+                    f"tables above the tail run degree-1 single-factor rounds only; "
+                    f"(degree, factors) = {(degree, len(tables))} needs the general "
+                    f"fold kernel (ROADMAP: port _fold_cap with the general rounds)"
+                )
+            stack = tables[0].reshape(1, field.n_limbs, size)  # a view: never written
+            if device_transcript and field.p > (1 << 32):
+                host_tables = SumcheckProver._device_rounds(
+                    field, stack, n_vars, tail, tail_size is None, transcript,
+                    round_polys, challenges,
+                )
+            else:
+                host_tables = SumcheckProver._synced_rounds(
+                    field, stack, n_vars, tail, transcript, round_polys, challenges
+                )
+
+        for _ in range(n_vars - len(challenges)):
+            if host_tables is None:
+                host_tables = _decode_host_tables(field, tables)
+            round_poly = host_tables.round_sums(degree)
+            transcript.append(field.elements_to_bytes(round_poly))
+            challenge = transcript.sample_field_element(field)
+            host_tables = host_tables.fold(challenge)
+            round_polys.append(round_poly)
+            challenges.append(challenge)
+
+        return SumcheckProof(sum=sum, round_polys=round_polys), challenges
+
+    @staticmethod
+    def _device_rounds(field, stack, n_vars, tail, default_tail, transcript, round_polys, challenges):
+        """Device-resident Fiat-Shamir: every round is queued on the device
+        and ONE host sync at the end reads the round polys, challenges,
+        sponge state (and the table, when a host tail follows).  On CUDA
+        every round runs on the device; on the CPU the last tables of up
+        to 128 elements finish on host ints, as in the reference (there a
+        device round is hundreds of small torch ops, dearer than the host
+        tail's bigint products).  An explicit tail_size wins."""
+        lanes, pend = transcript.export_state()
+        lo, hi, buf, pos = tdev.state_to_device(lanes, pend, stack.device)
+        if default_tail:
+            chain_tail = 1 if stack.device.type == "cuda" else min(128, tail)
+        else:
+            chain_tail = tail
+        rounds, size = 0, stack.shape[-1]
+        while size > chain_tail and rounds < n_vars:
+            rounds += 1
+            size //= 2
+        fold_last = rounds < n_vars  # the host tail continues from the table
+        sums, chs, lo, hi, buf, table = C.run_device_rounds(
+            field, stack, rounds, pos, fold_last, lo, hi, buf
+        )
+        L = field.n_limbs
+        parts = [torch.stack(sums), torch.stack(chs), lo, hi, buf]
+        if fold_last:
+            parts.append(table)
+        flat = torch.cat([t.reshape(-1).long() for t in parts]).cpu()  # the one sync
+        cuts = [t.numel() for t in parts]
+        got = list(torch.split(flat, cuts))
+        got_sums = got[0].reshape(rounds, L, 2)
+        got_chs = got[1].reshape(rounds, L, 1)
+        for total, ch in zip(got_sums, got_chs):
+            round_polys.append(dev.decode_ints(field, total, mont=False))
+            challenges.append(dev.decode_ints(field, ch, mont=False)[0])
+        transcript.import_state(*tdev.state_to_host(got[2], got[3], got[4], 32))
+        if not fold_last:
+            return None
+        return _decode_host_tables(field, [got[5].reshape(L, size)])
+
+    @staticmethod
+    def _synced_rounds(field, stack, n_vars, tail, transcript, round_polys, challenges):
+        """Per-round-synced tier: the same table kernels, with the round
+        sums read back and absorbed by the host Transcript every round."""
+        size = stack.shape[-1]
+        acc = C.round_sums(field, 1, stack, size)
+        owned = False  # the first fold writes a fresh buffer
+        while size > tail:
+            round_poly = K.decode_sums(field, acc)
+            transcript.append(field.elements_to_bytes(round_poly))
+            challenge = transcript.sample_field_element(field)
+            round_polys.append(round_poly)
+            challenges.append(challenge)
+            if len(challenges) == n_vars:
+                return None  # the last round needs no fold
+            r = dev.scalar(field, challenge, device=stack.device)
+            out = stack if owned else stack.new_empty((1, field.n_limbs, size // 2))
+            stack, acc = C.fold_halfsums(field, stack, size, r, out=out)  # size >= 4 here
+            owned = True
+            size //= 2
+        return _decode_host_tables(field, [stack[0, :, :size]])
+
+
+# --------------------------------------------------------------------------
+# serialization
+# --------------------------------------------------------------------------
+
+
+def proof_to_bytes(field: Field, proof: SumcheckProof) -> bytes:
+    """u32 round count, sum, then per round u32 eval count + canonical BE
+    elements (zk_tpu.sumcheck.proof_to_bytes)."""
+    out = bytearray()
+    out += len(proof.round_polys).to_bytes(4, "big")
+    out += field.to_bytes_be(proof.sum)
+    for rp in proof.round_polys:
+        out += len(rp).to_bytes(4, "big")
+        out += field.elements_to_bytes(rp)
+    return bytes(out)
+
+
+def proof_from_bytes(field: Field, data: bytes) -> SumcheckProof:
+    off = 0
+    n_rounds = int.from_bytes(data[off : off + 4], "big")
+    off += 4
+    s = field.from_be_bytes_mod_order(data[off : off + field.n_bytes])
+    off += field.n_bytes
+    round_polys = []
+    for _ in range(n_rounds):
+        cnt = int.from_bytes(data[off : off + 4], "big")
+        off += 4
+        rp = []
+        for _ in range(cnt):
+            rp.append(field.from_be_bytes_mod_order(data[off : off + field.n_bytes]))
+            off += field.n_bytes
+        round_polys.append(rp)
+    if off != len(data):
+        raise ValueError("trailing bytes in serialized proof")
+    return SumcheckProof(sum=s, round_polys=round_polys)
+
+
+# --------------------------------------------------------------------------
+# verifier
+# --------------------------------------------------------------------------
+
+
+class SumcheckVerifier:
+    """sumcheck/src/verifier.rs:9-79; exact host-int round checks."""
+
+    @staticmethod
+    def verify(poly, proof: SumcheckProof) -> bool:
+        """Full verification incl. the oracle check (verifier.rs:15-33).
+        Raises SumcheckError on a failed round check; returns False on a
+        failed oracle check."""
+        if len(proof.round_polys) != poly.n_vars:
+            raise SumcheckError("invalid proof: require 1 round poly for each variable in poly")
+        transcript = Transcript()
+        absorb_poly(transcript, poly)
+        subclaim = SumcheckVerifier._verify_internal(poly.field, proof, transcript)
+        return poly.evaluate(subclaim.challenges) == subclaim.sum
+
+    @staticmethod
+    def verify_partial(field: Field, proof: SumcheckProof) -> SubClaim:
+        """All checks except the oracle check (verifier.rs:38-41)."""
+        return SumcheckVerifier._verify_internal(field, proof, Transcript())
+
+    @staticmethod
+    def _verify_internal(field: Field, proof: SumcheckProof, transcript: Transcript) -> SubClaim:
+        """verifier.rs:44-78."""
+        challenges: list[int] = []
+        transcript.append(field.to_bytes_be(proof.sum))
+        claimed_sum = proof.sum % field.p
+        for round_poly in proof.round_polys:
+            transcript.append(field.elements_to_bytes(round_poly))
+            uni = UnivariatePolynomial.interpolate(field, round_poly)
+            if claimed_sum != field.add(uni.evaluate(0), uni.evaluate(1)):
+                raise SumcheckError("verifier check failed: claimed_sum != p(0) + p(1)")
+            challenge = transcript.sample_field_element(field)
+            claimed_sum = uni.evaluate(challenge)
+            challenges.append(challenge)
+        return SubClaim(sum=claimed_sum, challenges=challenges)

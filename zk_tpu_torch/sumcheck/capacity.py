@@ -1,0 +1,305 @@
+"""Table kernels of the sumcheck prover and MLE evaluation, and the
+device round loop.
+
+Counterpart of ``zk_tpu.sumcheck.capacity``.  Three wrappers, each of a
+hand-written CUDA kernel in csrc/capacity.cu, with the plain torch version
+of the same function beside it:
+
+  * ``fold_multi``    (replaces ``_fold_multi_cap``): fold f <= 4 MSB
+    variables of a table's live prefix in one pass;
+  * ``round_sums``    (replaces ``_round_sums_cap``): all D+1 round-poly
+    sums of a k-factor product;
+  * ``fold_halfsums`` (replaces ``_fold_halfsums_cap``): the fused
+    degree-1 round, fold at r plus the folded table's two half sums.
+
+A stack is a ``(k, L, cap)`` int32 tensor whose live prefix ``[0, size)``
+of every row holds the table (``size`` a power of two).  A fold writes
+its output to ``out``: the stack itself (in place over the prefix) or a
+fresh buffer.  A wrapper
+runs the plain version for CPU tensors and launches its kernel for CUDA
+tensors; there is no other fallback.
+
+Sums come back as ``(P, L, G)`` int64 partial accumulators: partial g
+holds the raw limb sums, over the pair indices of chunk g (see
+``partition``), of the Montgomery representatives at each point.  The
+kernel and the plain version produce bit-identical partials (integer
+sums are exact in any order); ``kernels.canon_sums`` and
+``kernels.decode_sums`` turn them into field elements.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from zk_tpu.fields.field import Field
+from zk_tpu_torch import _cuda
+from zk_tpu_torch.fields import device as dev
+
+THREADS = 256  # csrc/capacity.cu THREADS
+MAX_PARTIALS = 1024  # blocks (= partial accumulators) of a sums kernel
+MAX_DEGREE = 3
+# (degree, factors) instantiated in csrc/capacity.cu
+ROUND_SUMS_SHAPES = ((1, 1), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3))
+
+
+def partition(n: int) -> tuple[int, int]:
+    """(G, chunk): partial g of a sums kernel owns the pair indices
+    [g * chunk, (g + 1) * chunk) of n.  Each of THREADS threads adds at
+    most ceil(chunk / THREADS) limbs < 2^16 to a u32 accumulator, which is
+    exact while that count is <= 2^16."""
+    G = max(1, min(MAX_PARTIALS, -(-n // THREADS)))
+    chunk = -(-n // G)
+    if chunk > THREADS << 16:
+        raise ValueError(f"{n} pairs exceed the u32 accumulator bound")
+    return G, chunk
+
+
+def _partials_plain(contrib: torch.Tensor) -> torch.Tensor:
+    """(P, L, n) per-pair limb contributions -> (P, L, G) int64 partials,
+    grouped exactly as the kernel's blocks are."""
+    P, L, n = contrib.shape
+    G, chunk = partition(n)
+    c = contrib.long()
+    if G * chunk > n:
+        c = torch.cat([c, c.new_zeros((P, L, G * chunk - n))], dim=-1)
+    return c.reshape(P, L, G, chunk).sum(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _params(field: Field) -> np.ndarray:
+    """csrc/field.cuh FieldParams as uint32 words: p, -p^-1 mod 2^32, and
+    the Montgomery forms of the sample points 0..3."""
+    nw = field.n_limbs // 2
+    words = lambda v: [(v >> (32 * w)) & 0xFFFFFFFF for w in range(nw)]  # noqa: E731
+    out = words(field.p) + [(-pow(field.p, -1, 1 << 32)) % (1 << 32)]
+    for i in range(4):
+        out += words((i * field.R) % field.p)
+    return np.array(out, dtype=np.uint32)
+
+
+def _check_stack(field: Field, stack: torch.Tensor, size: int, name: str):
+    L = field.n_limbs
+    if stack.dtype != torch.int32:
+        raise TypeError(f"{name}: stack must be int32 limbs, got {stack.dtype}")
+    if stack.dim() != 3 or stack.shape[1] != L:
+        raise ValueError(f"{name}: stack must be (k, {L}, cap), got {tuple(stack.shape)}")
+    if size < 2 or size & (size - 1) or size > stack.shape[2]:
+        raise ValueError(f"{name}: size {size} must be a power of two in [2, cap]")
+
+
+def _check_cuda(field: Field, name: str, *tensors: torch.Tensor):
+    if field.n_limbs not in (4, 16):
+        raise ValueError(f"{name}: no CUDA kernel for {field.n_limbs}-limb fields")
+    dev0 = tensors[0].device
+    if dev0.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev0}")
+    for t in tensors:
+        if t.device != dev0:
+            raise ValueError(f"{name}: tensors on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _stream(t: torch.Tensor):
+    return ctypes.c_void_p(_cuda.stream_ptr(t.device))
+
+
+def _check_out(stack, out, n_out: int, name: str):
+    if out.dtype != torch.int32 or out.dim() != 3 or out.shape[:2] != stack.shape[:2]:
+        raise ValueError(f"{name}: out must be int32 {tuple(stack.shape[:2])} + (cap,)")
+    if out.shape[2] < n_out:
+        raise ValueError(f"{name}: out holds {out.shape[2]} < {n_out} elements")
+    if out.data_ptr() != stack.data_ptr() and _overlaps(stack, out):
+        raise ValueError(f"{name}: out overlaps the stack without being it")
+
+
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    a1 = a0 + a.numel() * a.element_size()
+    b1 = b0 + b.numel() * b.element_size()
+    return a0 < b1 and b0 < a1
+
+
+# --------------------------------------------------------------------------
+# fold_multi
+# --------------------------------------------------------------------------
+
+
+def fold_multi_plain(field: Field, stack, size: int, rs, out):
+    """Fold f = rs.shape[1] consecutive MSB variables of the (1, L, cap)
+    prefix: out[0, :, :size >> f] (same result as f separate var-0 folds)."""
+    x = stack[0, :, :size]
+    for l in range(rs.shape[1]):
+        h = x.shape[1] // 2
+        x = dev.lerp(field, x[:, :h], x[:, h:], rs[:, l : l + 1])
+    out[0, :, : size >> rs.shape[1]] = x
+    return out
+
+
+def fold_multi(field: Field, stack, size: int, rs, out):
+    """Fold f = rs.shape[1] (1..4) MSB variables of the live prefix of a
+    (1, L, cap) stack in one pass; rs is (L, f) int32 Montgomery scalars,
+    column l the scalar of variable l.  Writes out[0, :, :size >> f] (out
+    may be the stack itself) and returns out.  Replaces
+    zk_tpu/sumcheck/capacity.py::_fold_multi_cap."""
+    _check_stack(field, stack, size, "fold_multi")
+    f = rs.shape[1] if rs.dim() == 2 else -1
+    if stack.shape[0] != 1 or not 1 <= f <= 4 or rs.shape[0] != field.n_limbs:
+        raise ValueError("fold_multi: needs a (1, L, cap) stack and (L, f) scalars, 1 <= f <= 4")
+    if rs.dtype != torch.int32 or size < (1 << f):
+        raise ValueError("fold_multi: int32 scalars and size >= 2^f required")
+    n_out = size >> f
+    _check_out(stack, out, n_out, "fold_multi")
+    if stack.device.type == "cpu":
+        return fold_multi_plain(field, stack, size, rs, out)
+    _check_cuda(field, "fold_multi", stack, rs, out)
+    err = _cuda.lib().zk_fold_multi(
+        field.n_limbs, f, stack.data_ptr(), stack.shape[2], out.data_ptr(), out.shape[2],
+        n_out, rs.data_ptr(), _params(field).ctypes.data, _stream(stack),
+    )
+    _cuda.check(err, "fold_multi")
+    _cuda.count_launch("fold_multi")
+    return out
+
+
+# --------------------------------------------------------------------------
+# round_sums
+# --------------------------------------------------------------------------
+
+
+def round_sums_plain(field: Field, degree: int, stack, size: int):
+    """(D+1, L, G) int64 partials of the round-poly sums at 0..D of the
+    product of the k factors of a (k, L, cap) stack (prover.rs:49-56)."""
+    half = size // 2
+    contrib = []
+    for point in range(degree + 1):
+        prod = None
+        for t in range(stack.shape[0]):
+            left, right = stack[t, :, :half], stack[t, :, half:size]
+            if point == 0:
+                ev = left
+            elif point == 1:
+                ev = right
+            else:
+                r_i = dev.cached_const(field, point, True, stack.device)
+                ev = dev.lerp(field, left, right, r_i)
+            prod = ev if prod is None else dev.mont_mul(field, prod, ev)
+        contrib.append(prod)
+    return _partials_plain(torch.stack(contrib))
+
+
+def round_sums(field: Field, degree: int, stack, size: int):
+    """All D+1 round-polynomial sums over the live prefix [0, size) of a
+    (k, L, cap) stack, as (D+1, L, G) int64 partial accumulators.  Points
+    0 and 1 take the halves (no multiply); point i >= 2 lerps at i.
+    Replaces zk_tpu/sumcheck/capacity.py::_round_sums_cap."""
+    _check_stack(field, stack, size, "round_sums")
+    k = stack.shape[0]
+    if not 1 <= degree <= MAX_DEGREE:
+        raise ValueError(f"round_sums: degree {degree} not in 1..{MAX_DEGREE}")
+    if stack.device.type == "cpu":
+        return round_sums_plain(field, degree, stack, size)
+    _check_cuda(field, "round_sums", stack)
+    if (degree, k) not in ROUND_SUMS_SHAPES:
+        raise ValueError(f"round_sums: no kernel for (degree, k) = {(degree, k)}")
+    G, chunk = partition(size // 2)
+    partials = torch.empty((degree + 1, field.n_limbs, G), dtype=torch.int64, device=stack.device)
+    err = _cuda.lib().zk_round_sums(
+        field.n_limbs, degree, k, stack.data_ptr(), field.n_limbs * stack.shape[2],
+        stack.shape[2], size // 2, chunk, G, _params(field).ctypes.data,
+        partials.data_ptr(), _stream(stack),
+    )
+    _cuda.check(err, "round_sums")
+    _cuda.count_launch("round_sums")
+    return partials
+
+
+# --------------------------------------------------------------------------
+# fold_halfsums
+# --------------------------------------------------------------------------
+
+
+def fold_halfsums_plain(field: Field, stack, size: int, r, out):
+    half = size // 2
+    x = dev.lerp(field, stack[0, :, :half], stack[0, :, half:size], r)
+    out[0, :, :half] = x
+    zero = torch.zeros_like(x)
+    q = half // 2
+    contrib = torch.stack(
+        [torch.cat([x[:, :q], zero[:, q:]], 1), torch.cat([zero[:, :q], x[:, q:]], 1)]
+    )
+    return out, _partials_plain(contrib)
+
+
+def fold_halfsums(field: Field, stack, size: int, r, out):
+    """Fused degree-1 single-factor round: fold the (1, L, cap) prefix at
+    r ((L, 1) int32 Montgomery) into out[0, :, :size/2] (out may be the
+    stack itself), and return (out, (2, L, G) int64 partials of the folded
+    table's two halves) — the next round's p(0) and p(1).  size >= 4.
+    Replaces zk_tpu/sumcheck/capacity.py::_fold_halfsums_cap."""
+    _check_stack(field, stack, size, "fold_halfsums")
+    if stack.shape[0] != 1 or size < 4:
+        raise ValueError("fold_halfsums: needs a (1, L, cap) stack and size >= 4")
+    if r.dtype != torch.int32 or tuple(r.shape) != (field.n_limbs, 1):
+        raise ValueError("fold_halfsums: r must be (L, 1) int32")
+    half = size // 2
+    _check_out(stack, out, half, "fold_halfsums")
+    if stack.device.type == "cpu":
+        return fold_halfsums_plain(field, stack, size, r, out)
+    _check_cuda(field, "fold_halfsums", stack, r, out)
+    G, chunk = partition(half)
+    partials = torch.empty((2, field.n_limbs, G), dtype=torch.int64, device=stack.device)
+    err = _cuda.lib().zk_fold_halfsums(
+        field.n_limbs, stack.data_ptr(), stack.shape[2], out.data_ptr(), out.shape[2], half,
+        chunk, G, r.data_ptr(), _params(field).ctypes.data, partials.data_ptr(),
+        _stream(stack),
+    )
+    _cuda.check(err, "fold_halfsums")
+    _cuda.count_launch("fold_halfsums")
+    return out, partials
+
+
+# --------------------------------------------------------------------------
+# device round loop
+# --------------------------------------------------------------------------
+
+
+def run_device_rounds(field: Field, stack, rounds: int, pos: int, fold_last: bool, lo, hi, buf):
+    """Every device-resident round of a degree-1 single-factor prove
+    (prover.rs:44-68): per round the Fiat-Shamir step on the pending sums
+    (absorb, squeeze, challenge, all on the device), then the fused fold
+    at the fresh challenge, whose half sums are the next round's sums.
+    Nothing here waits on the device; the caller makes the one sync.
+
+    stack: (1, L, n) table; it is not modified (the first fold writes a
+    fresh half-size buffer, later folds run in place there).  Returns
+    (per-round sums [(L, 2) canonical], challenges [(L, 1) canonical],
+    lo, hi, buf, final table (live prefix only)).  The final table is
+    folded past the last round iff fold_last (the host tail continues
+    from it)."""
+    from zk_tpu_torch.sumcheck import kernels as K
+
+    size = stack.shape[-1]
+    acc = round_sums(field, 1, stack, size)
+    sums, chs = [], []
+    owned = False  # the first fold writes a fresh buffer, later ones fold it in place
+    p = pos
+    for rnd in range(rounds):
+        last = rnd == rounds - 1
+        lo, hi, buf, total, ch_c, ch_m = K.transcript_round(field, p, lo, hi, buf, acc)
+        if not last or fold_last:
+            out = stack if owned else stack.new_empty(stack.shape[:2] + (size // 2,))
+            if not last:
+                stack, acc = fold_halfsums(field, stack, size, ch_m, out=out)
+            else:
+                stack = fold_multi(field, stack, size, ch_m, out=out)
+            owned = True
+            size //= 2
+        p = 32
+        sums.append(total)
+        chs.append(ch_c)
+    return sums, chs, lo, hi, buf, stack[:, :, :size]

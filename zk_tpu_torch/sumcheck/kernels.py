@@ -1,0 +1,107 @@
+"""Round-sum normalisation, the device Fiat-Shamir round, and the host
+tail of the sumcheck prover.
+
+Counterpart of ``zk_tpu.sumcheck.kernels``.  The table kernels
+(``capacity``) return (P, L, G) int64 partial accumulators: raw sums of
+the 16-bit Montgomery limbs of every contribution.  Their value is a sum
+of Montgomery representatives, i.e. (true sum) * R modulo p, so:
+
+  * ``canon_sums`` (on the device) adds the G partials in int64 and turns
+    each point's wide limb vector into its canonical field element with
+    one batched Montgomery product against the 2^(16 j) weights
+    (``fields.device.renorm_wide``);
+  * ``decode_sums`` (on the host) does the same with Python ints.
+
+``transcript_round`` is the per-round Fiat-Shamir step on the device:
+canonical sums -> big-endian bytes -> absorb -> squeeze -> challenge.
+``HostTables`` is the exact host-int tier that finishes small tables.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from zk_tpu.fields.field import Field, LIMB_BITS
+from zk_tpu_torch.fields import device as dev
+from zk_tpu_torch.transcript import device as tdev
+
+TAIL_SIZE = 2048  # tables at/below this size finish on host ints
+
+
+def canon_sums(field: Field, partials: torch.Tensor) -> torch.Tensor:
+    """(P, L, G) int64 partials -> (L, P) canonical int32 limbs of the P
+    true sums.  Lane sums stay exact in int64 (< 2^40 per limb)."""
+    cols = partials.sum(dim=-1).t()  # (L, P): limb j of every point
+    return dev.renorm_wide(field, cols, mont_out=False)
+
+
+def decode_sums(field: Field, partials: torch.Tensor) -> list[int]:
+    """(P, L, G) int64 partials -> P canonical ints (host)."""
+    totals = partials.sum(dim=-1).tolist()
+    rinv = pow(field.R, -1, field.p)
+    out = []
+    for row in totals:
+        v = sum(int(limb) << (LIMB_BITS * i) for i, limb in enumerate(row))
+        out.append((v * rinv) % field.p)
+    return out
+
+
+def transcript_round(field: Field, pos: int, lo, hi, buf, partials: torch.Tensor):
+    """The per-round Fiat-Shamir step on the device: canonicalize the
+    round-poly sums ((D+1, L, G) partials), absorb their BE bytes, squeeze
+    the challenge (prover.rs:59-62, byte-exact with the host Transcript).
+
+    Returns (lo, hi, buf, round sums (L, D+1) canonical, challenge
+    canonical (L, 1), challenge Montgomery (L, 1)).  The new pos is always
+    32 (finalize_reset re-absorbs the digest)."""
+    total = canon_sums(field, partials)
+    data = tdev.serialize_canonical(field, total)
+    lo, hi, buf, pos2 = tdev.absorb(lo, hi, buf, pos, data)
+    lo, hi, buf, _pos3, digest = tdev.sample_challenge(lo, hi, buf, pos2)
+    mont, canon = tdev.challenge_from_digest(field, digest)
+    return lo, hi, buf, total, canon, mont
+
+
+class HostTables:
+    """Factor tables as Python int lists: terms -> factors -> evals."""
+
+    def __init__(self, field: Field, terms: list[list[list[int]]]):
+        self.field = field
+        self.terms = terms
+
+    @property
+    def size(self) -> int:
+        return len(self.terms[0][0])
+
+    def round_sums(self, degree: int) -> list[int]:
+        f = self.field
+        half = self.size // 2
+        sums = []
+        for point in range(degree + 1):
+            total = 0
+            for term in self.terms:
+                for e in range(half):
+                    prod = 1
+                    for fac in term:
+                        left, right = fac[e], fac[e + half]
+                        if point == 0:
+                            ev = left
+                        elif point == 1:
+                            ev = right
+                        else:
+                            ev = (left - point * (left - right)) % f.p
+                        prod = (prod * ev) % f.p
+                    total = (total + prod) % f.p
+            sums.append(total)
+        return sums
+
+    def fold(self, r: int) -> "HostTables":
+        f = self.field
+        half = self.size // 2
+        return HostTables(
+            f,
+            [
+                [[(fac[e] - r * (fac[e] - fac[e + half])) % f.p for e in range(half)] for fac in term]
+                for term in self.terms
+            ],
+        )
