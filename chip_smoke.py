@@ -11,33 +11,53 @@ one.  Phases, each an uncaught exception on failure:
      (3,1)), fold_halfsums on Goldilocks and BLS12-381 Fr at 2^4, 2^12,
      2^18 and the main path's 2^24 (BLS12-381), and Keccak-f[1600] on 64
      random states plus the Keccak-256("") known answer;
+  2b. the GKR kernels against their plain versions, exact: fold (K = 1..5)
+     and round_sums_terms (term sizes (2,1), (2,2), (2,3)) on Goldilocks and
+     BLS12-381 Fr at 2^4, 2^12, 2^18, and at GKR's 2^19 (BLS12-381);
   3. tier differential at n = 14 (BLS12-381): the device-transcript prove
      equals the synced-kernel prove and the exact host-int prove;
-  4. main path at n = 24 (BLS12-381 Fr): MLE.evaluate, prove_partial
-     (cold and warm), verify_partial and the oracle check, the
-     host-transcript prove equal to the device-transcript prove, all four
-     kernels launched; then prove + verify in full at n = 20.
+  3b. GKR tier differential (BLS12-381): on a seeded random circuit of
+     depth 3 and width 256 the device-resident chain, the per-phase synced
+     prover and the dense O(4^k) prover give the same proof; the
+     depth-3 width-8 circuit's proof equals tests/goldens/gkr_d3w8_prove.bin;
+  4. sumcheck main path at n = 24 (BLS12-381 Fr): MLE.evaluate,
+     prove_partial (cold and warm), verify_partial and the oracle check,
+     the host-transcript prove equal to the device-transcript prove, its
+     four kernels launched; then prove + verify in full at n = 20;
+  5. GKR main path: bench.py's 2 x 2^19-gate BLS12-381 circuit on inputs
+     made on the card, a cold and 5 warm proves, the synced prove
+     identical, verify (cold and warm) accepts, a flipped w_b is rejected,
+     its four kernels (fold, round_sums_terms, fold_multi, keccak_f1600)
+     launched.
 
 Before the last line it prints the per-kernel JSON line
-``{"kernels": [...]}``; the last line is the result object.
+``{"kernels": [...]}`` (time, plain time and bound at the timed shape, the
+launches on each kernel's path); the last line is the result object.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import random
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from zk_tpu_torch import MLE, ProductPoly, SumcheckProver, SumcheckVerifier, _cuda
+from zk_tpu_torch import transcript
 from zk_tpu_torch.fields import BLS12_381_FR, GOLDILOCKS
 from zk_tpu_torch.fields import device as dev
+from zk_tpu_torch.gkr import GKRError, GKRProof, GKRProver, GKRVerifier, gkr_proof_to_bytes
+from zk_tpu_torch.gkr.chain import prove_chain
+from zk_tpu_torch.gkr.circuit import Circuit, Gate
+from zk_tpu_torch.sumcheck import SumcheckError
 from zk_tpu_torch.sumcheck import capacity as C
 from zk_tpu_torch.sumcheck import proof_to_bytes
-from zk_tpu_torch.transcript import HAS_NATIVE
 from zk_tpu_torch.transcript import device as tdev
 from zk_tpu_torch.utils import mle_eval_mults, sumcheck_prover_mults
 
@@ -45,14 +65,51 @@ FR = BLS12_381_FR
 KECCAK256_EMPTY = "c5d2460186f7233c927e7db2dcc703c0e500b653ca82273b7bfad8045d85a470"
 SIZES = (1 << 4, 1 << 12, 1 << 18)
 MAIN_N = 24
+GKR_LOG = 19  # bench.py bench_gkr: 2 layers of 2^19 gates over 2^19 inputs
 DEVICE = "cuda"
+GOLDEN_GKR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens", "gkr_d3w8_prove.bin")
 
 KERNEL_INFO = {
     "fold_multi": ("zk_tpu_torch/csrc/capacity.cu", "zk_tpu/sumcheck/capacity.py:310"),
     "round_sums": ("zk_tpu_torch/csrc/capacity.cu", "zk_tpu/sumcheck/capacity.py:115"),
     "fold_halfsums": ("zk_tpu_torch/csrc/capacity.cu", "zk_tpu/sumcheck/capacity.py:250"),
     "keccak_f1600": ("zk_tpu_torch/csrc/keccak.cu", "zk_tpu/transcript/device.py:108"),
+    "fold": ("zk_tpu_torch/csrc/capacity.cu", "zk_tpu/sumcheck/capacity.py:208"),
+    "round_sums_terms": ("zk_tpu_torch/csrc/capacity.cu", "zk_tpu/sumcheck/capacity.py:149"),
 }
+SUMCHECK_KERNELS = ("fold_multi", "round_sums", "fold_halfsums", "keccak_f1600")
+GKR_KERNELS = ("fold", "round_sums_terms", "fold_multi", "keccak_f1600")
+
+# --------------------------------------------------------------------------
+# bounds: the least time the card could take for a call's work
+# --------------------------------------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+# 32-bit integer multiply-adds: 64 per clock per SM on compute capability
+# 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput),
+# 132 SMs at the 1.98 GHz boost clock
+IMAD_PER_S = 64 * 132 * 1.98e9
+INT_OPS_PER_S = IMAD_PER_S  # 32-bit integer logic, also 64 per clock per SM
+
+
+def mont_imads(field) -> int:
+    """32-bit multiply-adds of one CIOS Montgomery product (csrc/field.cuh):
+    2 NW^2 word products (product and reduction), each a 32x32->64
+    multiply-add = 2 IMADs (low and high halves)."""
+    nw = field.n_limbs // 2
+    return 4 * nw * nw
+
+
+def bound(nbytes: float, mont_products: float = 0.0, int_ops: float = 0.0, field=FR):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the integer operations over their peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = mont_products * mont_imads(field) / IMAD_PER_S + int_ops / INT_OPS_PER_S
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
+def elem_bytes(field) -> int:
+    return 4 * field.n_limbs  # one 16-bit limb per int32 word
 
 
 def log(msg: str) -> None:
@@ -103,7 +160,9 @@ def phase_device() -> str:
     t0 = time.perf_counter()
     _cuda.lib()
     log(f"kernel build + load: {time.perf_counter() - t0:.2f} s (nvcc {_cuda.last_build_seconds} s)")
-    log(f"host transcript backend: {'native C' if HAS_NATIVE else 'pure Python'}")
+    if not transcript.HAS_NATIVE:
+        raise RuntimeError("no C compiler for the host Keccak: the GKR proofs' 16 MiB absorbs need it")
+    log("host transcript backend: native C")
     return name
 
 
@@ -162,6 +221,44 @@ def check_fold_halfsums(field, size, gen, timed=False):
     return res
 
 
+def check_fold(field, size, k, gen, timed=False):
+    L = field.n_limbs
+    stack = rand_limbs(field, (k, L, size), gen)
+    r = rand_limbs(field, (L, 1), gen)
+    h = size // 2
+    want = C.fold_plain(field, stack, size, r, stack.new_zeros((k, L, h)))
+    out = C.fold(field, stack, size, r, out=stack.new_empty((k, L, h)))
+    inplace = stack.clone()
+    C.fold(field, inplace, size, r, out=inplace)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, want) and torch.equal(inplace[:, :, :h], want)):
+        raise AssertionError(f"fold {field.name} size={size} K={k}: kernel != plain")
+    res = {"err": max(max_err(out, want), max_err(inplace[:, :, :h], want))}
+    if timed:
+        buf = stack.new_empty((k, L, h))
+        res["ms"] = cuda_ms(lambda: C.fold(field, stack, size, r, out=buf))
+        res["plain_ms"] = cuda_ms(lambda: C.fold_plain(field, stack, size, r, buf), 2)
+        res["bound"] = bound(k * size * elem_bytes(field) + k * h * elem_bytes(field), k * h, field=field)
+    return res
+
+
+def check_round_sums_terms(field, size, term_ks, gen, timed=False):
+    stack = rand_limbs(field, (sum(term_ks), field.n_limbs, size), gen)
+    want = C.round_sums_terms_plain(field, 2, term_ks, stack, size)
+    got = C.round_sums_terms(field, 2, term_ks, stack, size)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"round_sums_terms {field.name} size={size} {term_ks}: kernel != plain")
+    res = {"err": max_err(got, want)}
+    if timed:
+        res["ms"] = cuda_ms(lambda: C.round_sums_terms(field, 2, term_ks, stack, size))
+        res["plain_ms"] = cuda_ms(lambda: C.round_sums_terms_plain(field, 2, term_ks, stack, size), 2)
+        # per pair and term: (D - 1) k lerps at the points >= 2, (k - 1)(D + 1) products
+        per_pair = sum(k + (k - 1) * 3 for k in term_ks)
+        res["bound"] = bound(sum(term_ks) * size * elem_bytes(field), per_pair * size // 2, field=field)
+    return res
+
+
 def check_keccak(gen):
     lo = torch.randint(0, 1 << 32, (64, 25), generator=gen, device=DEVICE, dtype=torch.int64)
     hi = torch.randint(0, 1 << 32, (64, 25), generator=gen, device=DEVICE, dtype=torch.int64)
@@ -175,10 +272,13 @@ def check_keccak(gen):
     if bytes(digest.tolist()) != bytes.fromhex(KECCAK256_EMPTY):
         raise AssertionError("Keccak-256('') known answer mismatch on the card")
     one_lo, one_hi = lo[0].contiguous(), hi[0].contiguous()
+    # one permutation: 24 rounds of ~213 64-bit logic ops (theta 65, rho 72,
+    # chi 75, iota 1), two 32-bit ops each; 2 x 25 lanes in and out
     return {
         "err": max(max_err(glo, wlo), max_err(ghi, whi)),
         "ms": cuda_ms(lambda: tdev.keccak_f1600_device(one_lo, one_hi), 50),
         "plain_ms": cuda_ms(lambda: tdev.keccak_f1600_plain(one_lo, one_hi), 5),
+        "bound": bound(4 * 25 * 8, int_ops=24 * 213 * 2),
     }
 
 
@@ -195,15 +295,20 @@ def phase_kernels() -> dict:
                 errs["round_sums"] = max(errs["round_sums"], check_round_sums(field, size, degree, k, gen)["err"])
             errs["fold_halfsums"] = max(errs["fold_halfsums"], check_fold_halfsums(field, size, gen)["err"])
         log(f"kernels == plain versions: {field.name} at sizes {SIZES}")
+    eb = elem_bytes(FR)
     for size in (SIZES[-1], 1 << MAIN_N):
         timed = {
             "fold_multi": check_fold_multi(FR, size, 4, gen, timed=True),
             "round_sums": check_round_sums(FR, size, 1, 1, gen, timed=True),
             "fold_halfsums": check_fold_halfsums(FR, size, gen, timed=True),
         }
+        timed["fold_multi"]["bound"] = bound(size * eb + size // 16 * eb, size - size // 16)
+        timed["round_sums"]["bound"] = bound(size * eb)
+        timed["fold_halfsums"]["bound"] = bound(size * eb + size // 2 * eb, size // 2)
         for name, res in timed.items():
             log(f"  {name} BLS12-381 size=2^{size.bit_length() - 1}: kernel {res['ms']:.4f} ms, "
-                f"plain {res['plain_ms']:.4f} ms, max_abs_err {res['err']}")
+                f"plain {res['plain_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms ({res['bound'][1]}), "
+                f"max_abs_err {res['err']}")
             errs[name] = max(errs[name], res["err"])
     torch.cuda.empty_cache()
     timed["keccak_f1600"] = check_keccak(gen)
@@ -213,6 +318,130 @@ def phase_kernels() -> dict:
     for name in timed:
         timed[name]["err"] = errs[name]
     return timed
+
+
+def phase_gkr_kernels() -> dict:
+    """fold and round_sums_terms against their plain versions at every
+    listed size (exact); timed at GKR's first-round shape, 2^19 BLS12-381:
+    fold of phase 2's K = 4 tables, round_sums_terms of (2, 2)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    errs = {"fold": 0, "round_sums_terms": 0}
+    for field in (GOLDILOCKS, FR):
+        sizes = SIZES + ((1 << GKR_LOG,) if field is FR else ())
+        for size in sizes:
+            for k in range(1, C.FOLD_MAX_FACTORS + 1):
+                errs["fold"] = max(errs["fold"], check_fold(field, size, k, gen)["err"])
+            for _, ks in C.ROUND_SUMS_TERMS_SHAPES:
+                errs["round_sums_terms"] = max(errs["round_sums_terms"], check_round_sums_terms(field, size, ks, gen)["err"])
+        log(f"GKR kernels == plain versions: {field.name} at sizes {sizes}")
+    timed = {
+        "fold": check_fold(FR, 1 << GKR_LOG, 4, gen, timed=True),
+        "round_sums_terms": check_round_sums_terms(FR, 1 << GKR_LOG, (2, 2), gen, timed=True),
+    }
+    for name, res in timed.items():
+        res["err"] = max(errs[name], res["err"])
+        log(f"  {name} BLS12-381 size=2^{GKR_LOG}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+            f"bound {res['bound'][0]:.4f} ms ({res['bound'][1]}), max_abs_err {res['err']}")
+    torch.cuda.empty_cache()
+    return timed
+
+
+def random_circuit(rng, depth, width, n_inputs) -> Circuit:
+    """tests/test_gkr.py's seeded layered circuit."""
+    layers, below = [], n_inputs
+    for d in range(depth):
+        size = width if d < depth - 1 else max(1, width // 2)
+        layers.append([
+            Gate("add" if rng.random() < 0.5 else "mul", rng.randrange(below), rng.randrange(below))
+            for _ in range(size)
+        ])
+        below = size
+    layers.reverse()
+    return Circuit(layers=layers, n_inputs=n_inputs)
+
+
+def phase_gkr_differential() -> None:
+    rng = random.Random(5)
+    c = random_circuit(rng, 3, 256, 256)
+    inputs = [rng.randrange(FR.p) for _ in range(256)]
+    chain, _ = GKRProver.prove(FR, c, inputs)
+    synced, _ = GKRProver.prove(FR, c, inputs, device_transcript=False)
+    dense, _ = GKRProver.prove_dense(FR, c, inputs)
+    if not chain == synced == dense:
+        raise AssertionError("GKR tier differential FAILED (depth 3, width 256)")
+    if not GKRVerifier.verify(FR, c, inputs, chain):
+        raise AssertionError("GKR verifier rejected an honest proof (depth 3, width 256)")
+    log("GKR tier differential depth 3 width 256: chain == synced per-phase == dense proofs; verified")
+    rng = random.Random(7)
+    c = random_circuit(rng, 3, 8, 8)
+    inputs = [rng.randrange(FR.p) for _ in range(8)]
+    with open(GOLDEN_GKR, "rb") as f:
+        golden = f.read()
+    if gkr_proof_to_bytes(FR, prove_chain(FR, c, inputs)[0]) != golden:
+        raise AssertionError("GKR d3w8 proof on the card != tests/goldens/gkr_d3w8_prove.bin")
+    log("GKR d3w8 proof on the card == tests/goldens/gkr_d3w8_prove.bin")
+
+
+def bench_gkr_circuit(width_log: int, depth: int = 2) -> Circuit:
+    """bench.py bench_gkr's circuit: per layer left = a, right = (5a + 3 + i)
+    mod 2^w, odd gates add."""
+    W = 1 << width_log
+    a = np.arange(W, dtype=np.int32)
+    layers = [(a, (a * 5 + 3 + i) % W, (a & 1).astype(bool)) for i in range(depth)]
+    return Circuit.from_arrays(layers, W)
+
+
+def phase_gkr_main(reps: int = 5) -> dict:
+    """The GKR main path at full width; returns its launch counts."""
+    c = bench_gkr_circuit(GKR_LOG)
+    W = 1 << GKR_LOG
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    inputs = torch.randint(0, 1 << 16, (FR.n_limbs, W), generator=gen, device=DEVICE, dtype=torch.int32)
+    inputs[FR.n_limbs - 1] &= 0x1FFF
+    rounds = sum(2 * c.layer_k(i + 1) for i in range(c.depth))
+    torch.cuda.synchronize()
+
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    proof, _ = GKRProver.prove(FR, c, inputs)
+    cold = time.perf_counter() - t0
+    counts = _cuda.launches()
+    proofs = []
+    warm = timed_runs(lambda: proofs.append(GKRProver.prove(FR, c, inputs)[0]), reps)
+    if any(p != proof for p in proofs):
+        raise AssertionError("GKR prove is not deterministic")
+    log(f"GKR {c.depth} x 2^{GKR_LOG} BLS12-381 prove (device chain, {rounds} transcript rounds): "
+        f"cold {cold:.6f} s; warm {spread(warm)}")
+    log(f"GKR path kernel launches (cold prove): {counts}")
+    missing = [k for k in GKR_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"GKR path never launched {missing}")
+
+    synced_runs = []
+    synced = timed_runs(lambda: synced_runs.append(GKRProver.prove(FR, c, inputs, device_transcript=False)[0]), 2)
+    if any(p != proof for p in synced_runs):
+        raise AssertionError("GKR synced per-phase prove differs from the device chain")
+    log(f"GKR synced per-phase prove identical; {spread(synced)}")
+
+    def verify():
+        if not GKRVerifier.verify(FR, c, inputs, proof):
+            raise AssertionError("GKR verifier rejected the honest 2 x 2^19 proof")
+
+    vcold = timed_runs(verify, 1)[0]
+    vwarm = timed_runs(verify, 3)
+    log(f"GKR verify: cold {vcold:.6f} s; warm {spread(vwarm)}")
+    lp = proof.layer_proofs[0]
+    bad_lp = type(lp)(sumcheck=lp.sumcheck, w_b=(lp.w_b + 1) % FR.p, w_c=lp.w_c, q_evals=lp.q_evals)
+    bad = GKRProof(outputs=proof.outputs, layer_proofs=[bad_lp] + proof.layer_proofs[1:])
+    try:
+        accepted = GKRVerifier.verify(FR, c, inputs, bad)
+    except (GKRError, SumcheckError):
+        accepted = False
+    if accepted:
+        raise AssertionError("GKR verifier accepted a proof with a flipped w_b")
+    log(f"GKR proof with a flipped w_b rejected; proof {len(gkr_proof_to_bytes(FR, proof))} bytes")
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_tier_differential() -> None:
@@ -298,7 +527,7 @@ def phase_main_path(reps: int = 5) -> dict:
     log(f"host-transcript prove_partial 2^{n} identical; {spread(host_runs)}")
     counts = _cuda.launches()
     log(f"main-path kernel launches: {counts}")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in SUMCHECK_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     del poly, pp
@@ -320,15 +549,21 @@ def phase_main_path(reps: int = 5) -> dict:
 def main() -> int:
     name = phase_device()
     timed = phase_kernels()
+    timed.update(phase_gkr_kernels())
     phase_tier_differential()
+    phase_gkr_differential()
     counts = phase_main_path()
+    gkr_counts = phase_gkr_main()
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():
         res = timed[kname]
+        path_counts = counts if kname in SUMCHECK_KERNELS else gkr_counts
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[kname], "max_abs_err": res["err"],
+            "launches": path_counts[kname], "max_abs_err": res["err"],
             "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
+            "library_ms": None,  # no single PyTorch call folds or sums Montgomery limbs
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

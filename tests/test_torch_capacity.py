@@ -15,16 +15,25 @@ import torch
 
 import jax.numpy as jnp
 
-from zk_tpu.fields import BLS12_381_FR, GOLDILOCKS
+from zk_tpu import fields as jfields
 from zk_tpu.fields import device as jdev
 from zk_tpu.poly.mle import _fold_kernel
 from zk_tpu.sumcheck.kernels import _fold_stack_inner, _sums_jnp_stack
 from zk_tpu_torch import interop
+from zk_tpu_torch.fields import BLS12_381_FR, GOLDILOCKS
 from zk_tpu_torch.fields import device as tdev
 from zk_tpu_torch.poly.mle import MLE
 from zk_tpu_torch.sumcheck import capacity as C
 
 torch.set_num_threads(1)
+
+# each package gets its own field object of the same name
+JF = {f.name: f for f in (jfields.GOLDILOCKS, jfields.BLS12_381_FR)}
+TF = {f.name: f for f in (GOLDILOCKS, BLS12_381_FR)}
+
+
+def _cpu(arr):
+    return interop.limbs_from_numpy(arr, "cpu")
 
 
 def _table(field, shape, seed):
@@ -41,16 +50,17 @@ def _mont_sums(field, partials):
     return tdev.renorm_wide(field, partials.sum(-1).t(), mont_out=True)
 
 
-CASES = [(GOLDILOCKS, 8, f) for f in (1, 2, 3, 4)] + [(BLS12_381_FR, 6, 1)]
+CASES = [("Goldilocks", 8, f) for f in (1, 2, 3, 4)] + [("BLS12-381-Fr", 6, 1)]
 
 
 @pytest.mark.parametrize("field,n,f", CASES, ids=lambda v: getattr(v, "name", v))
 def test_fold_multi_plain_matches_fold_kernel(field, n, f):
+    jf, field = JF[field], TF[field]
     data = _table(field, (field.n_limbs, 1 << n), 10 + f)
     rs = _table(field, (field.n_limbs, f), 20 + f)
-    want = _fold_kernel(field, n, 0, f, jnp.asarray(data), jnp.asarray(rs.T.copy()))
-    stack = interop.limbs_from_numpy(data).reshape(1, field.n_limbs, -1)
-    t_rs = interop.limbs_from_numpy(rs)
+    want = _fold_kernel(jf, n, 0, f, jnp.asarray(data), jnp.asarray(rs.T.copy()))
+    stack = _cpu(data).reshape(1, field.n_limbs, -1)
+    t_rs = _cpu(rs)
     out = C.fold_multi_plain(field, stack, 1 << n, t_rs, stack.new_zeros((1, field.n_limbs, 1 << (n - f))))
     np.testing.assert_array_equal(interop.limbs_to_numpy(out[0]), np.asarray(want))
     # the CPU wrapper, in place and into a fresh buffer, is the same fold
@@ -64,15 +74,16 @@ def test_fold_multi_plain_matches_fold_kernel(field, n, f):
 @pytest.mark.parametrize("initial_var,k", [(0, 6), (0, 8), (2, 3)])
 def test_mle_partial_evaluate_matches_fold_kernel(initial_var, k):
     field, n = GOLDILOCKS, 8
+    jf = JF[field.name]
     data = _table(field, (field.n_limbs, 1 << n), 30)
     pts = [(0xABCDEF + 977 * i) % field.p for i in range(k)]
-    rs = np.stack([jdev.const_limbs(field, a) for a in pts])
-    want = _fold_kernel(field, n, initial_var, k, jnp.asarray(data), jnp.asarray(rs))
-    mle = interop.mle_from_jax(field, n, data)
+    rs = np.stack([jdev.const_limbs(jf, a) for a in pts])
+    want = _fold_kernel(jf, n, initial_var, k, jnp.asarray(data), jnp.asarray(rs))
+    mle = interop.mle_from_jax(field, n, data, "cpu")
     got = mle.partial_evaluate(initial_var, pts)
     assert got.n_vars == n - k
     np.testing.assert_array_equal(interop.limbs_to_numpy(got.data), np.asarray(want))
-    assert torch.equal(mle.data, interop.limbs_from_numpy(data))  # input untouched
+    assert torch.equal(mle.data, _cpu(data))  # input untouched
 
 
 def test_mle_evaluate_against_host_ints():
@@ -84,21 +95,22 @@ def test_mle_evaluate_against_host_ints():
     for r in pt:
         h = len(cur) // 2
         cur = [(cur[e] - r * (cur[e] - cur[e + h])) % field.p for e in range(h)]
-    mle = MLE.new(field, n, vals)
+    mle = MLE.new(field, n, vals, device="cpu")
     assert mle.evaluate(pt) == cur[0]
     assert mle.evaluation_ints() == vals
     assert mle.to_bytes() == field.elements_to_bytes(vals)
 
 
-RS_CASES = [(GOLDILOCKS, 1, 1), (GOLDILOCKS, 2, 2), (GOLDILOCKS, 3, 1), (BLS12_381_FR, 1, 1)]
+RS_CASES = [("Goldilocks", 1, 1), ("Goldilocks", 2, 2), ("Goldilocks", 3, 1), ("BLS12-381-Fr", 1, 1)]
 
 
 @pytest.mark.parametrize("field,degree,k", RS_CASES, ids=lambda v: getattr(v, "name", v))
 def test_round_sums_plain_matches_sums_jnp_stack(field, degree, k):
+    jf, field = JF[field], TF[field]
     n = 7
     data = _table(field, (k, field.n_limbs, 1 << n), 40 + degree + k)
-    want = _sums_jnp_stack(field, degree, jnp.asarray(data))  # (D+1, L)
-    got = C.round_sums(field, degree, interop.limbs_from_numpy(data), 1 << n)
+    want = _sums_jnp_stack(jf, degree, jnp.asarray(data))  # (D+1, L)
+    got = C.round_sums(field, degree, _cpu(data), 1 << n)
     assert got.shape == (degree + 1, field.n_limbs, C.partition(1 << (n - 1))[0])
     np.testing.assert_array_equal(interop.limbs_to_numpy(_mont_sums(field, got)), np.asarray(want).T)
 
@@ -109,7 +121,7 @@ def test_round_sums_partials_layout():
     several chunks."""
     field, n = GOLDILOCKS, 12
     data = _table(field, (1, field.n_limbs, 1 << n), 50)
-    got = C.round_sums(field, 1, interop.limbs_from_numpy(data), 1 << n).numpy()
+    got = C.round_sums(field, 1, _cpu(data), 1 << n).numpy()
     half = 1 << (n - 1)
     G, chunk = C.partition(half)
     assert G > 1
@@ -120,15 +132,16 @@ def test_round_sums_partials_layout():
             )
 
 
-@pytest.mark.parametrize("field", [GOLDILOCKS, BLS12_381_FR], ids=lambda f: f.name)
+@pytest.mark.parametrize("field", list(TF))
 def test_fold_halfsums_plain_matches_fold_and_half_sums(field):
+    jf, field = JF[field], TF[field]
     n = 7
     data = _table(field, (1, field.n_limbs, 1 << n), 60)
-    r = jdev.scalar(field, 0x1F2E3D4C5B6A % field.p)
-    folded = _fold_stack_inner(field, 1, 1 << n, jnp.asarray(data), r)
-    halves = _sums_jnp_stack(field, 1, folded)  # (2, L): p(0), p(1) of the next round
-    stack = interop.limbs_from_numpy(data)
-    out, acc = C.fold_halfsums(field, stack, 1 << n, interop.limbs_from_numpy(np.asarray(r)), out=stack)
+    r = jdev.scalar(jf, 0x1F2E3D4C5B6A % field.p)
+    folded = _fold_stack_inner(jf, 1, 1 << n, jnp.asarray(data), r)
+    halves = _sums_jnp_stack(jf, 1, folded)  # (2, L): p(0), p(1) of the next round
+    stack = _cpu(data)
+    out, acc = C.fold_halfsums(field, stack, 1 << n, _cpu(np.asarray(r)), out=stack)
     np.testing.assert_array_equal(interop.limbs_to_numpy(out[:, :, : 1 << (n - 1)]), np.asarray(folded))
     np.testing.assert_array_equal(interop.limbs_to_numpy(_mont_sums(field, acc)), np.asarray(halves).T)
 
@@ -182,8 +195,9 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("field", [GOLDILOCKS, BLS12_381_FR], ids=lambda f: f.name)
+@pytest.mark.parametrize("field", list(TF))
 def test_cuda_kernels_match_plain(cuda, field):
+    field = TF[field]
     L = field.n_limbs
     stack = interop.limbs_from_numpy(_table(field, (1, L, 1 << 12), 70), cuda)
     rs = interop.limbs_from_numpy(_table(field, (L, 4), 71), cuda)

@@ -11,14 +11,18 @@ import torch
 
 import jax.numpy as jnp
 
-from zk_tpu.fields import BLS12_377_FR, BLS12_381_FR, GOLDILOCKS
+from zk_tpu import fields as jfields
 from zk_tpu.fields import device as jdev
+from zk_tpu_torch import fields as tfields
 from zk_tpu_torch import interop
 from zk_tpu_torch.fields import device as tdev
 
 torch.set_num_threads(1)
 
-FIELDS = [GOLDILOCKS, BLS12_381_FR, BLS12_377_FR]
+# each package gets its own field object of the same name
+FIELDS = ["Goldilocks", "BLS12-381-Fr", "BLS12-377-Fr"]
+JF = {f.name: f for f in (jfields.GOLDILOCKS, jfields.BLS12_381_FR, jfields.BLS12_377_FR)}
+TF = {f.name: f for f in (tfields.GOLDILOCKS, tfields.BLS12_381_FR, tfields.BLS12_377_FR)}
 N = 256
 
 
@@ -32,7 +36,7 @@ def _ints(field, seed, n=N):
 def _pair(field, seed):
     """The same (L, N) Montgomery limbs in both packages."""
     j = jdev.encode_ints(field, _ints(field, seed))
-    return j, interop.limbs_from_numpy(np.asarray(j))
+    return j, interop.limbs_from_numpy(np.asarray(j), "cpu")
 
 
 def _same(t, j):
@@ -52,41 +56,59 @@ OPS = {
 
 
 @pytest.mark.parametrize("op", list(OPS))
-@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("field", FIELDS)
 def test_op_matches_jax(field, op):
-    ja, ta = _pair(field, 1)
-    jb, tb = _pair(field, 2)
-    rj = jdev.scalar(field, 0x1234567890ABCDEF % field.p)
-    rt = interop.limbs_from_numpy(np.asarray(rj))
-    want = OPS[op](jdev, field, ja, jb, rj)
-    got = OPS[op](tdev, field, ta, tb, rt)
+    jf, tf = JF[field], TF[field]
+    ja, ta = _pair(jf, 1)
+    jb, tb = _pair(jf, 2)
+    rj = jdev.scalar(jf, 0x1234567890ABCDEF % jf.p)
+    rt = interop.limbs_from_numpy(np.asarray(rj), "cpu")
+    want = OPS[op](jdev, jf, ja, jb, rj)
+    got = OPS[op](tdev, tf, ta, tb, rt)
     assert got.dtype == torch.int32
     _same(got, want)
 
 
-@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("field", FIELDS)
 def test_encode_decode_match_jax(field):
+    jf, field = JF[field], TF[field]
     vals = _ints(field, 3)
     for mont in (True, False):
-        t = tdev.encode_ints(field, vals, mont=mont)
-        _same(t, jdev.encode_ints(field, vals, mont=mont))
+        t = tdev.encode_ints(field, vals, device="cpu", mont=mont)
+        _same(t, jdev.encode_ints(jf, vals, mont=mont))
         assert tdev.decode_ints(field, t, mont=mont) == vals
-    t = tdev.encode_ints(field, vals)
+    t = tdev.encode_ints(field, vals, device="cpu")
     assert tdev.decode_bytes_be(field, t) == field.elements_to_bytes(vals)
-    assert tdev.decode_bytes_be(field, t) == jdev.decode_bytes_be(field, np.asarray(interop.limbs_to_numpy(t)))
-    back = tdev.encode_bytes_be(field, field.elements_to_bytes(vals))
+    assert tdev.decode_bytes_be(field, t) == jdev.decode_bytes_be(jf, np.asarray(interop.limbs_to_numpy(t)))
+    back = tdev.encode_bytes_be(field, field.elements_to_bytes(vals), device="cpu")
     assert torch.equal(back, t)
 
 
-@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("field", FIELDS)
 def test_consts_match_jax(field):
+    jf, field = JF[field], TF[field]
     for v in (0, 1, 2, field.p - 1, 12345):
-        np.testing.assert_array_equal(tdev.const_limbs(field, v), jdev.const_limbs(field, v))
-        _same(tdev.scalar(field, v), jnp.asarray(jdev.scalar(field, v)))
+        np.testing.assert_array_equal(tdev.const_limbs(field, v), jdev.const_limbs(jf, v))
+        _same(tdev.scalar(field, v, device="cpu"), jnp.asarray(jdev.scalar(jf, v)))
 
 
-@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("field", FIELDS)
+def test_renorm_relaxed_matches_jax(field):
+    """Raw limb sums of many Montgomery values (a scatter-add's output)
+    renormalise to the reference's limbs."""
+    jf, tf = JF[field], TF[field]
+    rng = np.random.default_rng(6)
+    raw = rng.integers(0, 1 << 16, size=(200, jf.n_limbs, 7), dtype=np.uint32)
+    raw[:, -1, :] &= (1 << ((jf.p >> (16 * (jf.n_limbs - 1))).bit_length() - 1)) - 1  # each < p
+    x = raw.sum(axis=0, dtype=np.uint32)
+    want = jdev.renorm_relaxed(jf, jnp.asarray(x))
+    got = tdev.renorm_relaxed(tf, torch.from_numpy(x.astype(np.int64)))
+    _same(got, want)
+
+
+@pytest.mark.parametrize("field", FIELDS)
 def test_renorm_wide_against_host_ints(field):
+    field = TF[field]
     """Wide int64 column sums of many Montgomery limbs reduce to the exact
     sum, canonical and Montgomery."""
     rng = np.random.default_rng(4)

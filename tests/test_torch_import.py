@@ -1,4 +1,5 @@
-"""zk_tpu_torch imports without JAX and never falls back from a kernel."""
+"""zk_tpu_torch imports nothing of JAX or zk_tpu, puts its entry points on
+the card by default, and never falls back from a kernel."""
 
 import os
 import subprocess
@@ -7,8 +8,9 @@ import sys
 import pytest
 import torch
 
-from zk_tpu_torch import _cuda
+from zk_tpu_torch import MLE, GKRProver, _cuda
 from zk_tpu_torch.fields import BLS12_381_FR as FR
+from zk_tpu_torch.gkr.circuit import Circuit, Gate
 from zk_tpu_torch.sumcheck import capacity as C
 from zk_tpu_torch.transcript import device as tdev
 
@@ -18,13 +20,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_import_leaves_jax_out():
+    """Every module of the port imports, and neither JAX nor any module of
+    zk_tpu comes with it."""
     code = (
-        "import sys\n"
-        "import zk_tpu_torch, zk_tpu_torch.interop, zk_tpu_torch.sumcheck.capacity\n"
-        "import zk_tpu_torch.transcript.device, zk_tpu_torch.poly.univariate\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "import pkgutil, importlib, sys\n"
+        "import zk_tpu_torch\n"
+        "for m in pkgutil.walk_packages(zk_tpu_torch.__path__, 'zk_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert 'zk_tpu_torch.gkr.chain' in sys.modules\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'zk_tpu') or m.startswith(('jax', 'zk_tpu.')))\n"
         "assert not bad, bad\n"
         "assert zk_tpu_torch._cuda._LIB is None  # importing builds nothing\n"
+        "assert zk_tpu_torch.transcript.native._LIB is None\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -66,21 +73,25 @@ def test_cpu_wrappers_do_not_count_launches():
     _cuda.reset_launches()
     L = FR.n_limbs
     stack = torch.zeros((1, L, 8), dtype=torch.int32)
+    terms = torch.zeros((4, L, 8), dtype=torch.int32)
     r = torch.zeros((L, 1), dtype=torch.int32)
     C.fold_multi(FR, stack, 8, r, out=stack)
     C.round_sums(FR, 1, stack, 8)
     C.fold_halfsums(FR, stack, 8, r, out=stack)
+    C.fold(FR, terms, 8, r, out=terms)
+    C.round_sums_terms(FR, 2, (2, 2), terms, 8)
     z = torch.zeros(25, dtype=torch.int64)
     tdev.keccak_f1600_device(z, z)
     assert all(v == 0 for v in _cuda.launches().values())
 
 
-@pytest.mark.parametrize("kernel", ["fold_multi", "round_sums", "fold_halfsums", "keccak"])
+@pytest.mark.parametrize("kernel", ["fold_multi", "round_sums", "fold_halfsums", "keccak", "fold", "round_sums_terms"])
 def test_no_fallback_on_other_devices(kernel):
     """A tensor that is neither on the CPU nor on a CUDA card raises; it
     never takes the plain version."""
     L = FR.n_limbs
     stack = torch.zeros((1, L, 8), dtype=torch.int32, device="meta")
+    terms = torch.zeros((3, L, 8), dtype=torch.int32, device="meta")
     r = torch.zeros((L, 1), dtype=torch.int32, device="meta")
     z = torch.zeros(25, dtype=torch.int64, device="meta")
     calls = {
@@ -88,6 +99,25 @@ def test_no_fallback_on_other_devices(kernel):
         "round_sums": lambda: C.round_sums(FR, 1, stack, 8),
         "fold_halfsums": lambda: C.fold_halfsums(FR, stack, 8, r, out=stack),
         "keccak": lambda: tdev.keccak_f1600_device(z, z),
+        "fold": lambda: C.fold(FR, terms, 8, r, out=terms),
+        "round_sums_terms": lambda: C.round_sums_terms(FR, 2, (2, 1), terms, 8),
     }
     with pytest.raises(ValueError, match="unsupported device"):
         calls[kernel]()
+
+
+def test_entry_points_default_to_the_card():
+    """MLE.new, MLE.random and the GKR prover put their tensors on CUDA
+    unless the caller names another device: without a card they raise,
+    they never build a CPU tensor."""
+    if torch.cuda.is_available():
+        assert MLE.new(FR, 2, [1, 2, 3, 4]).data.device.type == "cuda"
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        MLE.new(FR, 2, [1, 2, 3, 4])
+    with pytest.raises((RuntimeError, AssertionError)):
+        MLE.random(FR, 2, torch.Generator())
+    circuit = Circuit([[Gate("mul", 0, 1)]], n_inputs=2)
+    with pytest.raises((RuntimeError, AssertionError)):
+        GKRProver.prove(FR, circuit, [3, 5])
+    assert MLE.new(FR, 2, [1, 2, 3, 4], device="cpu").data.device.type == "cpu"

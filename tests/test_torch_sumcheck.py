@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from zk_tpu import fields as jfields
 from zk_tpu import sumcheck as jsc
-from zk_tpu.fields import BLS12_381_FR, GOLDILOCKS
 from zk_tpu.poly import MLE as JMLE
 from zk_tpu.poly import CoeffMultilinearPolynomial
 from zk_tpu.poly import ProductPoly as JProductPoly
@@ -31,12 +31,15 @@ from zk_tpu_torch import (
     proof_from_bytes,
     proof_to_bytes,
 )
+from zk_tpu_torch.fields import BLS12_381_FR, GOLDILOCKS
 from zk_tpu_torch.poly.univariate import UnivariatePolynomial
 
 torch.set_num_threads(1)
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 FR = BLS12_381_FR
+JFR = jfields.BLS12_381_FR  # each package gets its own field object
+JF = {f.name: f for f in (jfields.GOLDILOCKS, jfields.BLS12_381_FR)}
 
 
 def _golden(name: str) -> bytes:
@@ -51,9 +54,9 @@ def _golden(name: str) -> bytes:
 
 def _p_2ab_3bc():
     evals = CoeffMultilinearPolynomial.new(
-        FR, 3, [(2, [True, True, False]), (3, [False, True, True])]
+        JFR, 3, [(2, [True, True, False]), (3, [False, True, True])]
     ).to_evaluation_form()
-    return ProductPoly([MLE.new(FR, 3, evals)])
+    return ProductPoly([MLE.new(FR, 3, evals, device="cpu")])
 
 
 def test_golden_2ab3bc_prove():
@@ -74,10 +77,10 @@ def test_golden_2ab3bc_partial_and_challenges():
 
 def test_golden_deg2_prove():
     p1 = CoeffMultilinearPolynomial.new(
-        FR, 2, [(2, [True, False]), (0, [False, True]), (3, [False, False])]
+        JFR, 2, [(2, [True, False]), (0, [False, True]), (3, [False, False])]
     ).to_evaluation_form()
-    p2 = CoeffMultilinearPolynomial.new(FR, 2, [(1, [True, True])]).to_evaluation_form()
-    poly = ProductPoly([MLE.new(FR, 2, p1), MLE.new(FR, 2, p2)])
+    p2 = CoeffMultilinearPolynomial.new(JFR, 2, [(1, [True, True])]).to_evaluation_form()
+    poly = ProductPoly([MLE.new(FR, 2, p1, device="cpu"), MLE.new(FR, 2, p2, device="cpu")])
     proof = SumcheckProver.prove(poly, 5, max_var_degree=2)
     assert proof_to_bytes(FR, proof) == _golden("sumcheck_deg2_prove.bin")
     assert SumcheckVerifier.verify(poly, proof)
@@ -89,9 +92,9 @@ def test_golden_wrong_sum_rejected_as_jax_rejects_it():
     assert data == _golden("sumcheck_wrong_sum_prove.bin")
     with pytest.raises(SumcheckError):
         SumcheckVerifier.verify(_p_2ab_3bc(), proof)
-    jpoly = JProductPoly([JMLE.new(FR, 3, _p_2ab_3bc().polynomials[0].evaluation_ints())])
+    jpoly = JProductPoly([JMLE.new(JFR, 3, _p_2ab_3bc().polynomials[0].evaluation_ints())])
     with pytest.raises(jsc.SumcheckError):
-        jsc.SumcheckVerifier.verify(jpoly, jsc.proof_from_bytes(FR, data))
+        jsc.SumcheckVerifier.verify(jpoly, jsc.proof_from_bytes(JFR, data))
 
 
 def test_golden_proof_bytes_roundtrip():
@@ -128,20 +131,21 @@ def jax_runs():
     import jax.numpy as jnp
 
     out = {}
-    for name, (field, n) in SLICE.items():
+    for name, (_, n) in SLICE.items():
+        field = JF[name]
         data = _table(field, n, 99)
         jpoly = JProductPoly([JMLE(field, n, jnp.asarray(data))])
         total = sum(jpoly.polynomials[0].evaluation_ints()) % field.p
         part, chs = jsc.SumcheckProver.prove_partial(jpoly, total, max_var_degree=1, device_transcript=False)
         full = jsc.SumcheckProver.prove(jpoly, total, max_var_degree=1, device_transcript=False)
-        out[name] = dict(data=data, total=total, partial=proof_to_bytes(field, part), challenges=chs,
-                         full=proof_to_bytes(field, full))
+        out[name] = dict(data=data, total=total, partial=jsc.proof_to_bytes(field, part), challenges=chs,
+                         full=jsc.proof_to_bytes(field, full))
     return out
 
 
 def _port_poly(name, run):
     field, n = SLICE[name]
-    return ProductPoly([interop.mle_from_jax(field, n, run["data"])])
+    return ProductPoly([interop.mle_from_jax(field, n, run["data"], "cpu")])
 
 
 TIERS = {
@@ -189,8 +193,9 @@ def test_tampered_round_poly_rejected_by_both(jax_runs):
     proof.round_polys[3][0] = (proof.round_polys[3][0] + 1) % field.p
     with pytest.raises(SumcheckError):
         SumcheckVerifier.verify_partial(field, proof)
+    jf = JF[field.name]
     with pytest.raises(jsc.SumcheckError):
-        jsc.SumcheckVerifier.verify_partial(field, jsc.proof_from_bytes(field, proof_to_bytes(field, proof)))
+        jsc.SumcheckVerifier.verify_partial(jf, jsc.proof_from_bytes(jf, proof_to_bytes(field, proof)))
 
 
 def test_device_transcript_matches_jax_device_transcript():
@@ -198,29 +203,34 @@ def test_device_transcript_matches_jax_device_transcript():
     import jax.numpy as jnp
 
     field, n = GOLDILOCKS, 13
+    jf = JF[field.name]
     data = _table(field, n, 7)
-    total = sum(MLE(field, n, interop.limbs_from_numpy(data)).evaluation_ints()) % field.p
-    jpoly = JProductPoly([JMLE(field, n, jnp.asarray(data))])
+    total = sum(MLE(field, n, interop.limbs_from_numpy(data, "cpu")).evaluation_ints()) % field.p
+    jpoly = JProductPoly([JMLE(jf, n, jnp.asarray(data))])
     jproof, jchs = jsc.SumcheckProver.prove_partial(jpoly, total, max_var_degree=1, device_transcript=True)
-    poly = ProductPoly([interop.mle_from_jax(field, n, data)])
+    poly = ProductPoly([interop.mle_from_jax(field, n, data, "cpu")])
     proof, chs = SumcheckProver.prove_partial(poly, total, max_var_degree=1, device_transcript=True)
-    assert proof_to_bytes(field, proof) == jsc.proof_to_bytes(field, jproof)
+    assert proof_to_bytes(field, proof) == jsc.proof_to_bytes(jf, jproof)
     assert chs == jchs
 
 
 def test_general_rounds_above_tail_not_implemented():
+    """Degree-2 rounds above the tail, once refused, now run the fold and
+    round-sums kernels' tier and give the host tier's proof."""
     field = GOLDILOCKS
-    a = MLE.new(field, 4, list(range(16)))
-    with pytest.raises(NotImplementedError, match="_fold_cap"):
-        SumcheckProver.prove_partial(ProductPoly([a, a]), 0, max_var_degree=2, tail_size=4)
-    # at or below the tail the host tier proves any degree
-    proof, _ = SumcheckProver.prove_partial(ProductPoly([a, a]), sum(x * x for x in range(16)), max_var_degree=2)
-    assert len(proof.round_polys) == 4
+    a = MLE.new(field, 4, list(range(16)), device="cpu")
+    total = sum(x * x for x in range(16))
+    host, _ = SumcheckProver.prove_partial(ProductPoly([a, a]), total, max_var_degree=2)
+    for dt in (False, True):
+        proof, _ = SumcheckProver.prove_partial(ProductPoly([a, a]), total, max_var_degree=2, tail_size=4, device_transcript=dt)
+        assert proof == host
+    assert len(host.round_polys) == 4
+    assert torch.equal(a.data, MLE.new(field, 4, list(range(16)), device="cpu").data)  # tables untouched
 
 
 @pytest.mark.parametrize("ys", [[5], [3, 9], [1, 4, 9, 16], [7, 0, 2**70, 11]])
 def test_univariate_interpolate_matches_jax(ys):
-    want = JUni.interpolate(FR, ys)
+    want = JUni.interpolate(JFR, ys)
     got = UnivariatePolynomial.interpolate(FR, ys)
     assert got.coefficients == want.coefficients
     for x in (0, 1, 2, 12345, FR.p - 1):

@@ -7,11 +7,11 @@ import torch
 
 import jax.numpy as jnp
 
-from zk_tpu.fields import BLS12_377_FR, BLS12_381_FR, GOLDILOCKS
 from zk_tpu.transcript import Transcript
 from zk_tpu.transcript import device as jt
 from zk_tpu.transcript.keccak import Keccak256, keccak256, keccak_f1600
 from zk_tpu_torch import interop
+from zk_tpu_torch.fields import BLS12_377_FR, BLS12_381_FR, GOLDILOCKS
 from zk_tpu_torch.fields import device as tdev
 from zk_tpu_torch.sumcheck import kernels as K
 from zk_tpu_torch.transcript import device as tt
@@ -74,11 +74,11 @@ def test_challenges_through_exported_state(field):
     host, mirror = Transcript(), Transcript()
     for t in (host, mirror):
         t.append(b"prefix bytes of some length" * 7)
-    lo, hi, buf, pos = tt.state_to_device(*host.export_state())
+    lo, hi, buf, pos = tt.state_to_device(*host.export_state(), "cpu")
     for step in range(3):
         data = bytes(range(step * 40, step * 40 + 64))
         mirror.append(data)
-        want = mirror.sample_field_element(field)
+        want = int.from_bytes(mirror.sample_challenge(), "big") % field.p
         lo, hi, buf, pos = tt.absorb(lo, hi, buf, pos, torch.tensor(list(data)))
         lo, hi, buf, pos, digest = tt.sample_challenge(lo, hi, buf, pos)
         mont, canon = tt.challenge_from_digest(field, digest)
@@ -93,8 +93,8 @@ def test_state_matches_jax_state_to_device():
     host.append(b"x" * 150)
     lanes, pend = host.export_state()
     jlo, jhi, jbuf, jpos = jt.state_to_device(lanes, pend)
-    lo, hi, buf, pos = interop.transcript_state_from_jax(jlo, jhi, jbuf, jpos)
-    tlo, thi, tbuf, tpos = tt.state_to_device(lanes, pend)
+    lo, hi, buf, pos = interop.transcript_state_from_jax(jlo, jhi, jbuf, jpos, "cpu")
+    tlo, thi, tbuf, tpos = tt.state_to_device(lanes, pend, "cpu")
     assert torch.equal(lo, tlo) and torch.equal(hi, thi) and torch.equal(buf, tbuf) and pos == tpos
     back = interop.transcript_state_to_jax(tlo, thi, tbuf, tpos)
     for a, b in zip(back[:3], (jlo, jhi, jbuf)):
@@ -104,7 +104,7 @@ def test_state_matches_jax_state_to_device():
 @pytest.mark.parametrize("field", [GOLDILOCKS, BLS12_381_FR], ids=lambda f: f.name)
 def test_serialize_canonical_matches_host_bytes(field):
     vals = [0, 1, field.p - 1, 0xDEADBEEF % field.p, (field.p * 2) // 3]
-    t = tdev.encode_ints(field, vals, mont=False)
+    t = tdev.encode_ints(field, vals, device="cpu", mont=False)
     assert bytes(tt.serialize_canonical(field, t).tolist()) == field.elements_to_bytes(vals)
 
 
@@ -117,10 +117,41 @@ def test_transcript_round_matches_host_round(field):
     sums = K.decode_sums(field, partials)
     host = Transcript()
     host.append(field.to_bytes_be(123))
-    lo, hi, buf, pos = tt.state_to_device(*host.export_state())
+    lo, hi, buf, pos = tt.state_to_device(*host.export_state(), "cpu")
     host.append(field.elements_to_bytes(sums))
-    want = host.sample_field_element(field)
+    want = int.from_bytes(host.sample_challenge(), "big") % field.p
     lo, hi, buf, total, canon, mont = K.transcript_round(field, pos, lo, hi, buf, partials)
     assert tdev.decode_ints(field, total, mont=False) == sums
     assert tdev.decode_ints(field, canon, mont=False) == [want]
     assert tdev.decode_ints(field, mont) == [want]
+
+
+@pytest.mark.parametrize("sizes", [(0,), (1, 135), (136, 137, 500), (1 << 16,)])
+def test_host_keccak_c_and_python_match_jax(sizes):
+    """The port's host hashers (C and pure Python) against zk_tpu's."""
+    from zk_tpu_torch import transcript as ttr
+    from zk_tpu_torch.transcript import keccak as tk
+    from zk_tpu_torch.transcript import native
+
+    assert ttr.HAS_NATIVE  # the C hasher builds wherever `cc` is on PATH
+    rng = np.random.default_rng(sum(sizes) + 1)
+    c_hasher, py_hasher, want = native.NativeKeccak256(native.load()), tk.Keccak256(), Keccak256()
+    for n in sizes:
+        data = rng.integers(0, 256, size=n, dtype=np.uint8).tobytes()
+        for h in (c_hasher, py_hasher, want):
+            h.update(data)
+    assert c_hasher.export_state() == py_hasher.export_state() == want.export_state()
+    c_hasher.import_state(*want.export_state())
+    assert c_hasher.finalize_reset() == py_hasher.finalize_reset() == want.finalize_reset()
+
+
+def test_host_transcript_matches_jax_transcript():
+    from zk_tpu_torch.transcript import Transcript as TTranscript
+
+    port, ref = TTranscript(), Transcript()
+    for t in (port, ref):
+        t.append(b"outputs" * 50)
+    assert [port.sample_challenge() for _ in range(3)] == [ref.sample_challenge() for _ in range(3)]
+    assert port.sample_n_field_elements(GOLDILOCKS, 2) == [
+        int.from_bytes(ref.sample_challenge(), "big") % GOLDILOCKS.p for _ in range(2)
+    ]

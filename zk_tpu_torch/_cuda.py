@@ -37,7 +37,7 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
-KERNELS = ("fold_multi", "round_sums", "fold_halfsums", "keccak_f1600")
+KERNELS = ("fold_multi", "round_sums", "fold_halfsums", "keccak_f1600", "fold", "round_sums_terms")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -123,8 +123,10 @@ def lib() -> ctypes.CDLL:
         so.zk_fold_halfsums.argtypes = [I, P, I64, P, I64, I64, I64, I, P, P, P, P]
         so.zk_round_sums.argtypes = [I, I, I, P, I64, I64, I64, I64, I, P, P, P]
         so.zk_keccak_f1600.argtypes = [P, P, P, P, I, P]
-        for fn in (so.zk_fold_multi, so.zk_fold_halfsums, so.zk_round_sums, so.zk_keccak_f1600):
-            fn.restype = ctypes.c_int
+        so.zk_fold.argtypes = [I, I, P, I64, I64, P, I64, I64, I64, P, P, P]
+        so.zk_round_sums_terms.argtypes = [I, I, I, I, P, I64, I64, I64, I64, I, P, P, P]
+        for name in KERNELS:
+            getattr(so, f"zk_{name}").restype = ctypes.c_int
         _LIB = so
         return so
 

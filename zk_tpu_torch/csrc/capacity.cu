@@ -1,9 +1,12 @@
-// The sumcheck table kernels: fold_multi, round_sums, fold_halfsums.
+// The sumcheck table kernels: fold_multi, round_sums, fold_halfsums, fold,
+// round_sums_terms.
 //
 // Replace the Pallas kernels of zk_tpu/sumcheck/capacity.py:
-//   fold_multi    <- _fold_multi_cap   (MLE evaluation, up to 4 variables per pass)
-//   round_sums    <- _round_sums_cap   (all D+1 round-polynomial sums)
-//   fold_halfsums <- _fold_halfsums_cap (fused degree-1 round: fold + next sums)
+//   fold_multi       <- _fold_multi_cap       (MLE evaluation, up to 4 variables per pass)
+//   round_sums       <- _round_sums_cap       (all D+1 round-polynomial sums)
+//   fold_halfsums    <- _fold_halfsums_cap    (fused degree-1 round: fold + next sums)
+//   fold             <- _fold_cap             (fold all K factors of a stack at r)
+//   round_sums_terms <- _round_sums_terms_cap (round sums of a sum of products)
 //
 // Layout: a stack is (k, L, cap) 16-bit limbs in 32-bit words; the live
 // prefix [0, size) of each row holds the table.  Folds are in place
@@ -24,11 +27,27 @@
 // (P, L, G); the transcript round adds the G partials in int64.
 //
 // Accumulator bound (replaces the TPU's 2^15-grid-steps argument,
-// capacity.py:33-38): a thread adds at most ceil(chunk / blockDim) terms,
-// each a limb < 2^16, to a u32 — safe for up to 2^16 terms, which the
-// wrapper enforces (chunk <= 2^16 * THREADS).  The block sum is u64: at
-// most chunk * 2^16 < 2^40.  Integer sums are exact in any order, so the
-// partials are bit-identical to the plain torch version's.
+// capacity.py:33-38): a thread adds at most ceil(chunk / blockDim) pairs,
+// each adding n_terms limbs < 2^16 (n_terms = 1 but for round_sums_terms),
+// to a u32 — safe for up to 2^16 limbs, which the wrapper enforces
+// (ceil(chunk / THREADS) * n_terms <= 2^16, sumcheck/capacity.py
+// partition).  The block sum is u64: at most chunk * n_terms * 2^16.
+// Integer sums are exact in any order, so the partials are bit-identical
+// to the plain torch version's.
+//
+// fold and round_sums_terms (the GKR layer rounds, K = 3 or 4 factors of
+// 2^19 elements at the first round): fold is one thread per output
+// element e < size/2 over all K rows, ~1.5 Montgomery products per
+// element and factor against 3 * 64 bytes moved per element and factor
+// at L = 16, so it sits near the memory bound like fold_multi; in place
+// is safe because the thread writing e is the only reader of e and never
+// writes e + size/2.  round_sums_terms reads 2 * K elements per pair and
+// does ~(D - 1) * K lerps plus (K - n_terms) * (D + 1) products, about
+// 12 Montgomery products per pair for GKR's (2, (2, 2)), so its integer
+// multiply bound and its memory bound are about level.  Both keep every
+// limb in registers (term sizes are template arguments, all loops
+// unrolled); neither shares anything between threads but the sums'
+// block reduction.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -142,6 +161,80 @@ round_sums_kernel(const uint32_t* stack, int64_t fac_stride, int64_t row_stride,
   block_reduce_store<(D + 1) * L>(acc, partials, G);
 }
 
+template <int NW, int K>
+__global__ void __launch_bounds__(THREADS)
+fold_kernel(const uint32_t* in, int64_t in_fac, int64_t in_stride, uint32_t* out, int64_t out_fac,
+            int64_t out_stride, int64_t half, const uint32_t* rp, FieldParams<NW> fp) {
+  uint32_t r[NW];
+  load_scalar<NW>(r, rp, 1, 0);
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < half;
+       e += (int64_t)gridDim.x * blockDim.x) {
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      uint32_t a[NW], b[NW];
+      load_elem<NW>(a, in + t * in_fac, in_stride, e);
+      load_elem<NW>(b, in + t * in_fac, in_stride, e + half);
+      lerp<NW>(a, a, b, r, fp);
+      store_elem<NW>(out + t * out_fac, out_stride, e, a);
+    }
+  }
+}
+
+// Two product terms of K0 and K1 factors (rows [0, K0) and [K0, K0 + K1)
+// of the stack): per pair, sum over the terms of the product of their
+// factors at each point 0..D, into the same accumulators.
+template <int NW, int D, int K0, int K1>
+__global__ void __launch_bounds__(THREADS)
+round_sums_terms_kernel(const uint32_t* stack, int64_t fac_stride, int64_t row_stride,
+                        int64_t half, int64_t chunk, FieldParams<NW> fp,
+                        unsigned long long* partials, int G) {
+  constexpr int L = 2 * NW;
+  constexpr int K = K0 + K1;
+  uint32_t acc[(D + 1) * L];
+#pragma unroll
+  for (int k = 0; k < (D + 1) * L; ++k) acc[k] = 0;
+  const int64_t beg = (int64_t)blockIdx.x * chunk;
+  const int64_t end = beg + chunk < half ? beg + chunk : half;
+  for (int64_t e = beg + threadIdx.x; e < end; e += blockDim.x) {
+    uint32_t left[K][NW], right[K][NW];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      load_elem<NW>(left[j], stack + j * fac_stride, row_stride, e);
+      load_elem<NW>(right[j], stack + j * fac_stride, row_stride, e + half);
+    }
+#pragma unroll
+    for (int pt = 0; pt <= D; ++pt) {
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        uint32_t prod[NW], ev[NW];
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const bool in_term = t == 0 ? j < K0 : j >= K0;
+          const bool first = j == (t == 0 ? 0 : K0);
+          if (!in_term) continue;
+          if (pt == 0) {
+#pragma unroll
+            for (int w = 0; w < NW; ++w) ev[w] = left[j][w];
+          } else if (pt == 1) {
+#pragma unroll
+            for (int w = 0; w < NW; ++w) ev[w] = right[j][w];
+          } else {
+            lerp<NW>(ev, left[j], right[j], fp.pts[pt], fp);
+          }
+          if (first) {
+#pragma unroll
+            for (int w = 0; w < NW; ++w) prod[w] = ev[w];
+          } else {
+            mont_mul<NW>(prod, prod, ev, fp);
+          }
+        }
+        acc_limbs<NW>(acc + pt * L, prod);
+      }
+    }
+  }
+  block_reduce_store<(D + 1) * L>(acc, partials, G);
+}
+
 int grid_for(int64_t n) {
   int64_t blocks = (n + THREADS - 1) / THREADS;
   const int64_t cap = 132 * 16;  // enough resident waves on 132 SMs
@@ -184,6 +277,41 @@ int round_sums_nw(int D, int K, const uint32_t* stack, int64_t fac_stride, int64
                                        partials, s);
   ZK_RS(1, 1) ZK_RS(2, 1) ZK_RS(2, 2) ZK_RS(3, 1) ZK_RS(3, 2) ZK_RS(3, 3)
 #undef ZK_RS
+  return -1;
+}
+
+template <int NW>
+int fold_nw(int K, const uint32_t* in, int64_t in_fac, int64_t in_stride, uint32_t* out,
+            int64_t out_fac, int64_t out_stride, int64_t half, const uint32_t* r,
+            const uint32_t* params, cudaStream_t s) {
+  const FieldParams<NW> fp = load_params<NW>(params);
+  const int grid = grid_for(half);
+#define ZK_FOLD(k)                                                                           \
+  case k:                                                                                    \
+    fold_kernel<NW, k><<<grid, THREADS, 0, s>>>(in, in_fac, in_stride, out, out_fac, out_stride, \
+                                               half, r, fp);                                 \
+    break;
+  switch (K) {
+    ZK_FOLD(1) ZK_FOLD(2) ZK_FOLD(3) ZK_FOLD(4) ZK_FOLD(5)
+    default: return -1;
+  }
+#undef ZK_FOLD
+  return (int)cudaGetLastError();
+}
+
+template <int NW>
+int round_sums_terms_nw(int D, int K0, int K1, const uint32_t* stack, int64_t fac_stride,
+                        int64_t row_stride, int64_t half, int64_t chunk, int G,
+                        const uint32_t* params, unsigned long long* partials, cudaStream_t s) {
+  const FieldParams<NW> fp = load_params<NW>(params);
+#define ZK_RST(d, a, b)                                                                     \
+  if (D == d && K0 == a && K1 == b) {                                                       \
+    round_sums_terms_kernel<NW, d, a, b><<<G, THREADS, 0, s>>>(stack, fac_stride, row_stride, \
+                                                               half, chunk, fp, partials, G); \
+    return (int)cudaGetLastError();                                                         \
+  }
+  ZK_RST(2, 2, 1) ZK_RST(2, 2, 2) ZK_RST(2, 2, 3)
+#undef ZK_RST
   return -1;
 }
 
@@ -240,6 +368,37 @@ int zk_round_sums(int L, int D, int K, const void* stack, int64_t fac_stride,
   auto acc = (unsigned long long*)partials;
   if (L == 4) return round_sums_nw<2>(D, K, st, fac_stride, row_stride, half, chunk, G, p, acc, s);
   if (L == 16) return round_sums_nw<8>(D, K, st, fac_stride, row_stride, half, chunk, G, p, acc, s);
+  return -1;
+}
+
+// Fold all K factors of a stack at r: out[t][e] = lerp(in[t][e], in[t][e + half], r)
+// for e < half.  in_fac / out_fac: words between factors; out may be in.
+int zk_fold(int L, int K, const void* in, int64_t in_fac, int64_t in_stride, void* out,
+            int64_t out_fac, int64_t out_stride, int64_t half, const void* r, const void* params,
+            void* stream) {
+  auto s = (cudaStream_t)stream;
+  auto i = (const uint32_t*)in;
+  auto o = (uint32_t*)out;
+  auto rp = (const uint32_t*)r;
+  auto p = (const uint32_t*)params;
+  if (L == 4) return fold_nw<2>(K, i, in_fac, in_stride, o, out_fac, out_stride, half, rp, p, s);
+  if (L == 16) return fold_nw<8>(K, i, in_fac, in_stride, o, out_fac, out_stride, half, rp, p, s);
+  return -1;
+}
+
+// Round-polynomial sums of a two-term sum of products (K0 + K1 factor
+// rows) at the points 0..D: (D+1, L, G) u64 partial limb sums.
+int zk_round_sums_terms(int L, int D, int K0, int K1, const void* stack, int64_t fac_stride,
+                        int64_t row_stride, int64_t half, int64_t chunk, int G, const void* params,
+                        void* partials, void* stream) {
+  auto s = (cudaStream_t)stream;
+  auto st = (const uint32_t*)stack;
+  auto p = (const uint32_t*)params;
+  auto acc = (unsigned long long*)partials;
+  if (L == 4)
+    return round_sums_terms_nw<2>(D, K0, K1, st, fac_stride, row_stride, half, chunk, G, p, acc, s);
+  if (L == 16)
+    return round_sums_terms_nw<8>(D, K0, K1, st, fac_stride, row_stride, half, chunk, G, p, acc, s);
   return -1;
 }
 

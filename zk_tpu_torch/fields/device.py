@@ -20,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from zk_tpu.fields.field import Field, LIMB_BITS, LIMB_MASK
+from zk_tpu_torch.fields.field import Field, LIMB_BITS, LIMB_MASK
 
 _B = LIMB_BITS
 
@@ -45,7 +45,14 @@ def const_limbs(field: Field, value: int, mont: bool = True) -> np.ndarray:
     return _int_to_limbs(v, field.n_limbs)
 
 
-def scalar(field: Field, value: int, mont: bool = True, device="cpu") -> torch.Tensor:
+def resolve_device(device) -> torch.device:
+    """The device of a public entry point: the card unless the caller
+    names another (``device="cpu"``).  Without a card, "cuda" raises at
+    the first tensor; nothing falls back to the CPU."""
+    return torch.device("cuda" if device is None else device)
+
+
+def scalar(field: Field, value: int, *, device, mont: bool = True) -> torch.Tensor:
     """Host int -> (L, 1) int32 scalar for broadcasting."""
     limbs = const_limbs(field, value, mont=mont).astype(np.int32)
     return torch.from_numpy(limbs).reshape(field.n_limbs, 1).to(device)
@@ -55,7 +62,7 @@ def scalar(field: Field, value: int, mont: bool = True, device="cpu") -> torch.T
 def cached_const(field: Field, value: int, mont: bool, device: torch.device) -> torch.Tensor:
     """``scalar`` kept on its device: a constant uploaded once, so the
     prover's round loop copies nothing from the host."""
-    return scalar(field, value, mont=mont, device=device)
+    return scalar(field, value, device=device, mont=mont)
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,7 +80,7 @@ def _col(field: Field, x: torch.Tensor, ndim: int) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def encode_ints(field: Field, values, mont: bool = True, device="cpu") -> torch.Tensor:
+def encode_ints(field: Field, values, *, device, mont: bool = True) -> torch.Tensor:
     """Python ints -> (L, N) int32 limb tensor (Montgomery form by default)."""
     p, L = field.p, field.n_limbs
     vals = [int(v) % p for v in values]
@@ -115,7 +122,7 @@ def decode_bytes_be(field: Field, t: torch.Tensor, mont: bool = True) -> bytes:
     return buf.tobytes()
 
 
-def encode_bytes_be(field: Field, data: bytes, mont: bool = True, device="cpu") -> torch.Tensor:
+def encode_bytes_be(field: Field, data: bytes, *, device, mont: bool = True) -> torch.Tensor:
     """Concatenated canonical BE bytes -> (L, N) int32 limb tensor."""
     nb, L = field.n_bytes, field.n_limbs
     if len(data) % nb:
@@ -172,9 +179,7 @@ def mont_mul(field: Field, a, b) -> torch.Tensor:
     """Elementwise Montgomery product a * b * R^-1 mod p (inputs < p).
 
     Schoolbook into 2L+1 int64 columns (each 16x16 product < 2^32, a
-    column < 2^38 throughout), then L word-serial reduction steps
-    m = t_i * (-p^-1) mod 2^16, t += m * p << 16 i, and one conditional
-    subtract."""
+    column < 2^38 throughout), then the Montgomery reduction."""
     L = field.n_limbs
     a, b = a.long(), b.long()
     shape = torch.broadcast_shapes(a.shape, b.shape)
@@ -182,7 +187,16 @@ def mont_mul(field: Field, a, b) -> torch.Tensor:
     t = torch.zeros((2 * L + 1,) + shape[1:], dtype=torch.int64, device=a.device)
     for j in range(L):
         t[j : j + L] += a * b[j]
-    p = _col(field, t, len(shape))
+    return _mont_reduce(field, t)
+
+
+def _mont_reduce(field: Field, t: torch.Tensor) -> torch.Tensor:
+    """(2L+1, *S) int64 columns of a value T < R p -> T R^-1 mod p as
+    (L, *S) int32 limbs: L word-serial steps m = t_i * (-p^-1) mod 2^16,
+    t += m * p << 16 i, then one conditional subtract (the result is
+    < 2p).  t is updated in place."""
+    L = field.n_limbs
+    p = _col(field, t, t.ndim)
     pinv = field.p_inv_neg & LIMB_MASK  # -p^-1 mod 2^16
     for i in range(L):
         m = ((t[i] & LIMB_MASK) * pinv) & LIMB_MASK
@@ -190,6 +204,22 @@ def mont_mul(field: Field, a, b) -> torch.Tensor:
         t[i + 1] += t[i] >> _B
     u, _ = _carry(t[L:])
     return _cond_sub_p(field, u[:L], u[L]).int()
+
+
+def renorm_relaxed(field: Field, x: torch.Tensor) -> torch.Tensor:
+    """Raw limb sums -> proper Montgomery limbs (zk_tpu.fields.device.
+    renorm_relaxed): x is a non-negative int64 (L, *S) tensor holding, per
+    element, limb-wise sums of at most 2^16 Montgomery representatives
+    (a scatter-add of a GKR wiring table), so its value T < 2^16 p <= R p.
+    One carry pass, one Montgomery reduction (T R^-1) and one product with
+    R^2 give T mod p: the Montgomery form of the true sum."""
+    L = field.n_limbs
+    limbs, carry = _carry(x.long())
+    t = torch.zeros((2 * L + 1,) + x.shape[1:], dtype=torch.int64, device=x.device)
+    t[:L] = limbs
+    t[L] = carry
+    canon = _mont_reduce(field, t)
+    return mont_mul(field, canon, _bcast_const(field, field.R2, canon))
 
 
 def _bcast_const(field: Field, value: int, like: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from zk_tpu.fields.field import Field
+from zk_tpu_torch.fields.field import Field
 from zk_tpu_torch.fields import device as dev
 
 
@@ -31,15 +31,15 @@ def fold_ladder(field: Field, n_vars: int, initial_var: int, data, rs):
     return x
 
 
-def _fold_var0(field: Field, data, assignments: list[int]):
-    """Consecutive var-0 folds: one upload of all scalars, then a chain of
-    fold_multi passes (up to 4 variables each).  The first pass writes a
-    fresh buffer, so ``data`` is left as it was."""
+def fold_var0(field: Field, data, rs):
+    """Fold the first k variables of an (L, 2^n) table at the (L, k) int32
+    Montgomery scalars ``rs`` (on the table's device, so nothing is
+    uploaded): a chain of fold_multi passes, up to 4 variables each.  The
+    first pass writes a fresh buffer, so ``data`` is left as it was.
+    Returns the (L, 2^(n-k)) folded table."""
     from zk_tpu_torch.sumcheck import capacity as C
 
-    L = field.n_limbs
-    k = len(assignments)
-    rs = dev.encode_ints(field, assignments, device=data.device)  # (L, k)
+    L, k = field.n_limbs, rs.shape[1]
     stack = data.reshape(1, L, -1)
     size, i = stack.shape[-1], 0
     out = None
@@ -64,19 +64,22 @@ class MLE:
         self.data = data
 
     @classmethod
-    def new(cls, field: Field, n_vars: int, evaluations: list[int], device="cpu") -> "MLE":
-        """Validates len == 2^n_vars (evaluation_form.rs:15-27)."""
+    def new(cls, field: Field, n_vars: int, evaluations: list[int], device=None) -> "MLE":
+        """Validates len == 2^n_vars (evaluation_form.rs:15-27).  On the
+        card unless ``device`` names another."""
         if len(evaluations) != (1 << n_vars):
             raise ValueError("evaluation vec len should equal 2^n_vars")
-        return cls(field, n_vars, dev.encode_ints(field, evaluations, device=device))
+        return cls(field, n_vars, dev.encode_ints(field, evaluations, device=dev.resolve_device(device)))
 
     @classmethod
-    def random(cls, field: Field, n_vars: int, generator: torch.Generator, device="cpu") -> "MLE":
+    def random(cls, field: Field, n_vars: int, generator: torch.Generator, device=None) -> "MLE":
         """Random 16-bit limbs with the top limb masked below p's top limb,
-        so every element is < p (a valid Montgomery representative)."""
+        so every element is < p (a valid Montgomery representative).  On
+        the card unless ``device`` names another."""
         L = field.n_limbs
         data = torch.randint(
-            0, 1 << 16, (L, 1 << n_vars), generator=generator, device=device, dtype=torch.int32
+            0, 1 << 16, (L, 1 << n_vars), generator=generator, device=dev.resolve_device(device),
+            dtype=torch.int32,
         )
         top = (field.p >> (16 * (L - 1))).bit_length() - 1
         data[L - 1] &= (1 << top) - 1
@@ -90,10 +93,10 @@ class MLE:
             return MLE(self.field, self.n_vars, self.data)
         if k > self.n_vars or initial_var + k > self.n_vars:
             raise ValueError("partial evaluation out of range")
+        rs = dev.encode_ints(self.field, assignments, device=self.data.device)  # (L, k)
         if initial_var == 0:
-            return MLE(self.field, self.n_vars - k, _fold_var0(self.field, self.data, assignments))
-        rs = dev.encode_ints(self.field, assignments, device=self.data.device).t()
-        out = fold_ladder(self.field, self.n_vars, initial_var, self.data, rs)
+            return MLE(self.field, self.n_vars - k, fold_var0(self.field, self.data, rs))
+        out = fold_ladder(self.field, self.n_vars, initial_var, self.data, rs.t())
         return MLE(self.field, self.n_vars - k, out)
 
     def evaluate(self, assignments: list[int]) -> int:

@@ -1,12 +1,14 @@
-"""Products of same-arity multilinear polynomials (product_poly.rs).
+"""Products, and sums of products, of same-arity multilinear polynomials
+(product_poly.rs).
 
-Counterpart of ``zk_tpu.poly.product.ProductPoly``: P(x) = A(x)·B(x)·…
-held un-expanded; the prover works on the factor tables.
+Counterpart of ``zk_tpu.poly.product``: P(x) = A(x)·B(x)·… held
+un-expanded, and Σ_t Π_j f_{t,j} (``SumOfProducts``); the prover works on
+the factor tables.
 """
 
 from __future__ import annotations
 
-from zk_tpu.fields.field import Field
+from zk_tpu_torch.fields.field import Field
 from zk_tpu_torch.poly.mle import MLE
 
 
@@ -39,3 +41,43 @@ class ProductPoly:
     def max_degree(self) -> int:
         """Per-variable degree bound = number of factors."""
         return len(self.polynomials)
+
+    def to_bytes(self) -> bytes:
+        """Concat of member to_bytes (product_poly.rs:77-83)."""
+        return b"".join(p.to_bytes() for p in self.polynomials)
+
+
+class SumOfProducts:
+    """Σ_t Π_j f_{t,j}: ProductPoly terms over the same variables (the GKR
+    layer polynomial's shape; zk_tpu.poly.product.SumOfProducts).  The
+    round polynomial's degree is the largest factor count of a term."""
+
+    def __init__(self, terms: list[ProductPoly]):
+        if len(terms) == 0:
+            raise ValueError("cannot create sum of products from empty terms")
+        n_vars = terms[0].n_vars
+        if any(t.n_vars != n_vars for t in terms):
+            raise ValueError("sum of products terms must share the same number of variables")
+        self.field: Field = terms[0].field
+        self.n_vars = n_vars
+        self.terms = terms
+
+    def evaluate(self, assignments: list[int]) -> int:
+        out = 0
+        for t in self.terms:
+            out = self.field.add(out, t.evaluate(assignments))
+        return out
+
+    def to_bytes(self) -> bytes:
+        return b"".join(t.to_bytes() for t in self.terms)
+
+    @property
+    def max_degree(self) -> int:
+        return max(t.max_degree for t in self.terms)
+
+
+def terms_of(poly) -> list[list]:
+    """ProductPoly or SumOfProducts -> per term, its factor tables."""
+    if isinstance(poly, SumOfProducts):
+        return [[p.data for p in t.polynomials] for t in poly.terms]
+    return [[p.data for p in poly.polynomials]]

@@ -8,7 +8,7 @@ exact Python ints with schoolbook products (d is tiny).
 
 from __future__ import annotations
 
-from zk_tpu.fields.field import Field
+from zk_tpu_torch.fields.field import Field
 
 
 class UnivariatePolynomial:

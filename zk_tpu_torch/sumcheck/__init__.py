@@ -12,9 +12,11 @@ per table:
     squeezes — the differential tier for the device transcript;
   * host: tables at or below ``tail_size`` finish in exact Python ints.
 
-Tables larger than the tail run the degree-1 single-factor rounds only;
-other (degree, factors) shapes need the general fold kernel (ROADMAP,
-"_fold_cap with the general rounds") and raise NotImplementedError.
+The polynomial is a ProductPoly or a SumOfProducts of any degree up to
+``capacity.MAX_DEGREE``.  Degree-1 single-factor tables run the fused
+fold-and-half-sums round; every other shape runs its terms concatenated
+in one stack, with a fold and a (sum-of-products) round-sums kernel per
+round.
 
 Error semantics match the reference: a failed round check raises
 SumcheckError (verifier.rs:61-66), a failed oracle check returns False.
@@ -26,9 +28,10 @@ from dataclasses import dataclass
 
 import torch
 
-from zk_tpu.fields.field import Field
-from zk_tpu.transcript import Transcript
+from zk_tpu_torch.fields.field import Field
+from zk_tpu_torch.transcript import Transcript
 from zk_tpu_torch.fields import device as dev
+from zk_tpu_torch.poly.product import terms_of
 from zk_tpu_torch.poly.univariate import UnivariatePolynomial
 from zk_tpu_torch.sumcheck import capacity as C
 from zk_tpu_torch.sumcheck import kernels as K
@@ -60,17 +63,24 @@ _ABSORB_CHUNK = 1 << 20  # elements per transcript-absorb fetch
 
 
 def absorb_poly(transcript: Transcript, poly) -> None:
-    """Absorb a polynomial's canonical bytes (prover.rs:17 / the verifier's
-    poly binding) in 2^20-element chunks (canonical BE bytes concatenate
-    per element, so chunking is byte-identical)."""
-    for p in poly.polynomials:
-        n = p.data.shape[-1]
-        for a in range(0, n, _ABSORB_CHUNK):
-            transcript.append(dev.decode_bytes_be(poly.field, p.data[:, a : a + _ABSORB_CHUNK]))
+    """Absorb a polynomial's canonical bytes, every factor of every term
+    (prover.rs:17 / the verifier's poly binding), in 2^20-element chunks
+    (canonical BE bytes concatenate per element, so chunking is
+    byte-identical)."""
+    for term in terms_of(poly):
+        for data in term:
+            for a in range(0, data.shape[-1], _ABSORB_CHUNK):
+                transcript.append(dev.decode_bytes_be(poly.field, data[:, a : a + _ABSORB_CHUNK]))
 
 
-def _decode_host_tables(field: Field, tables) -> K.HostTables:
-    return K.HostTables(field, [[dev.decode_ints(field, t) for t in tables]])
+def _decode_host_tables(field: Field, ks, rows) -> K.HostTables:
+    """(sum(ks), L, n) factor rows -> HostTables split into the terms ks."""
+    ints = [dev.decode_ints(field, rows[i]) for i in range(rows.shape[0])]
+    terms, row = [], 0
+    for k in ks:
+        terms.append(ints[row : row + k])
+        row += k
+    return K.HostTables(field, terms)
 
 
 class SumcheckProver:
@@ -116,44 +126,48 @@ class SumcheckProver:
         max_var_degree: int | None = None,
         tail_size: int | None = None,
         device_transcript: bool | None = None,
+        bind_sum: bool = True,
     ) -> tuple[SumcheckProof, list[int]]:
-        """prover.rs:33-69 round loop across the three tiers."""
+        """prover.rs:33-69 round loop across the three tiers.  bind_sum=False
+        skips the claimed-sum binding: the second phase of a two-phase GKR
+        layer continues a sumcheck already bound (the verifier absorbs the
+        sum once per layer proof, verifier.rs:50)."""
         field: Field = poly.field
         degree = max_var_degree if max_var_degree is not None else poly.max_degree
         tail = K.TAIL_SIZE if tail_size is None else tail_size
-        transcript.append(field.to_bytes_be(sum))
+        if bind_sum:
+            transcript.append(field.to_bytes_be(sum))
 
         round_polys: list[list[int]] = []
         challenges: list[int] = []
         n_vars = poly.n_vars
         size = 1 << n_vars
-        tables = [p.data for p in poly.polynomials]
-        device = tables[0].device
+        terms = terms_of(poly)
+        ks = tuple(len(t) for t in terms)
+        device = terms[0][0].device
         if device_transcript is None:
             device_transcript = device.type == "cuda" and field.p > (1 << 32)
         host_tables = None
 
         if size > tail and n_vars > 0:
-            if (degree, len(tables)) != (1, 1):
-                raise NotImplementedError(
-                    f"tables above the tail run degree-1 single-factor rounds only; "
-                    f"(degree, factors) = {(degree, len(tables))} needs the general "
-                    f"fold kernel (ROADMAP: port _fold_cap with the general rounds)"
-                )
-            stack = tables[0].reshape(1, field.n_limbs, size)  # a view: never written
+            L = field.n_limbs
+            if (degree, ks) == (1, (1,)):
+                stack = terms[0][0].reshape(1, L, size)  # a view: never written
+            else:  # a fresh buffer, folded in place
+                stack = torch.cat([t.reshape(1, L, size) for term in terms for t in term])
             if device_transcript and field.p > (1 << 32):
                 host_tables = SumcheckProver._device_rounds(
-                    field, stack, n_vars, tail, tail_size is None, transcript,
+                    field, degree, ks, stack, n_vars, tail, tail_size is None, transcript,
                     round_polys, challenges,
                 )
             else:
                 host_tables = SumcheckProver._synced_rounds(
-                    field, stack, n_vars, tail, transcript, round_polys, challenges
+                    field, degree, ks, stack, n_vars, tail, transcript, round_polys, challenges
                 )
 
         for _ in range(n_vars - len(challenges)):
             if host_tables is None:
-                host_tables = _decode_host_tables(field, tables)
+                host_tables = K.HostTables(field, [[dev.decode_ints(field, t) for t in term] for term in terms])
             round_poly = host_tables.round_sums(degree)
             transcript.append(field.elements_to_bytes(round_poly))
             challenge = transcript.sample_field_element(field)
@@ -164,7 +178,7 @@ class SumcheckProver:
         return SumcheckProof(sum=sum, round_polys=round_polys), challenges
 
     @staticmethod
-    def _device_rounds(field, stack, n_vars, tail, default_tail, transcript, round_polys, challenges):
+    def _device_rounds(field, degree, ks, stack, n_vars, tail, default_tail, transcript, round_polys, challenges):
         """Device-resident Fiat-Shamir: every round is queued on the device
         and ONE host sync at the end reads the round polys, challenges,
         sponge state (and the table, when a host tail follows).  On CUDA
@@ -183,17 +197,16 @@ class SumcheckProver:
             rounds += 1
             size //= 2
         fold_last = rounds < n_vars  # the host tail continues from the table
-        sums, chs, lo, hi, buf, table = C.run_device_rounds(
-            field, stack, rounds, pos, fold_last, lo, hi, buf
+        sums, chs, _, lo, hi, buf, table = C.run_device_rounds(
+            field, degree, ks, stack, rounds, pos, fold_last, lo, hi, buf
         )
         L = field.n_limbs
         parts = [torch.stack(sums), torch.stack(chs), lo, hi, buf]
         if fold_last:
             parts.append(table)
         flat = torch.cat([t.reshape(-1).long() for t in parts]).cpu()  # the one sync
-        cuts = [t.numel() for t in parts]
-        got = list(torch.split(flat, cuts))
-        got_sums = got[0].reshape(rounds, L, 2)
+        got = list(torch.split(flat, [t.numel() for t in parts]))
+        got_sums = got[0].reshape(rounds, L, degree + 1)
         got_chs = got[1].reshape(rounds, L, 1)
         for total, ch in zip(got_sums, got_chs):
             round_polys.append(dev.decode_ints(field, total, mont=False))
@@ -201,15 +214,16 @@ class SumcheckProver:
         transcript.import_state(*tdev.state_to_host(got[2], got[3], got[4], 32))
         if not fold_last:
             return None
-        return _decode_host_tables(field, [got[5].reshape(L, size)])
+        return _decode_host_tables(field, ks, got[5].reshape(-1, L, size))
 
     @staticmethod
-    def _synced_rounds(field, stack, n_vars, tail, transcript, round_polys, challenges):
+    def _synced_rounds(field, degree, ks, stack, n_vars, tail, transcript, round_polys, challenges):
         """Per-round-synced tier: the same table kernels, with the round
         sums read back and absorbed by the host Transcript every round."""
         size = stack.shape[-1]
-        acc = C.round_sums(field, 1, stack, size)
-        owned = False  # the first fold writes a fresh buffer
+        deg1 = (degree, ks) == (1, (1,))
+        acc = C.term_sums(field, degree, ks, stack, size)
+        owned = not deg1  # a degree-1 prove's first fold writes a fresh buffer
         while size > tail:
             round_poly = K.decode_sums(field, acc)
             transcript.append(field.elements_to_bytes(round_poly))
@@ -220,10 +234,15 @@ class SumcheckProver:
                 return None  # the last round needs no fold
             r = dev.scalar(field, challenge, device=stack.device)
             out = stack if owned else stack.new_empty((1, field.n_limbs, size // 2))
-            stack, acc = C.fold_halfsums(field, stack, size, r, out=out)  # size >= 4 here
+            if deg1:
+                stack, acc = C.fold_halfsums(field, stack, size, r, out=out)  # size >= 4 here
+            else:
+                stack = C.fold(field, stack, size, r, out=out)
+                if size // 2 > tail:
+                    acc = C.term_sums(field, degree, ks, stack, size // 2)
             owned = True
             size //= 2
-        return _decode_host_tables(field, [stack[0, :, :size]])
+        return _decode_host_tables(field, ks, stack[:, :, :size])
 
 
 # --------------------------------------------------------------------------

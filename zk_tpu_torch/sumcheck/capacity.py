@@ -1,7 +1,7 @@
 """Table kernels of the sumcheck prover and MLE evaluation, and the
 device round loop.
 
-Counterpart of ``zk_tpu.sumcheck.capacity``.  Three wrappers, each of a
+Counterpart of ``zk_tpu.sumcheck.capacity``.  Five wrappers, each of a
 hand-written CUDA kernel in csrc/capacity.cu, with the plain torch version
 of the same function beside it:
 
@@ -10,7 +10,11 @@ of the same function beside it:
   * ``round_sums``    (replaces ``_round_sums_cap``): all D+1 round-poly
     sums of a k-factor product;
   * ``fold_halfsums`` (replaces ``_fold_halfsums_cap``): the fused
-    degree-1 round, fold at r plus the folded table's two half sums.
+    degree-1 round, fold at r plus the folded table's two half sums;
+  * ``fold``          (replaces ``_fold_cap``): fold every factor of a
+    stack at r;
+  * ``round_sums_terms`` (replaces ``_round_sums_terms_cap``): all D+1
+    round-poly sums of a sum of products, every term in one pass.
 
 A stack is a ``(k, L, cap)`` int32 tensor whose live prefix ``[0, size)``
 of every row holds the table (``size`` a power of two).  A fold writes
@@ -35,7 +39,7 @@ import functools
 import numpy as np
 import torch
 
-from zk_tpu.fields.field import Field
+from zk_tpu_torch.fields.field import Field
 from zk_tpu_torch import _cuda
 from zk_tpu_torch.fields import device as dev
 
@@ -44,25 +48,29 @@ MAX_PARTIALS = 1024  # blocks (= partial accumulators) of a sums kernel
 MAX_DEGREE = 3
 # (degree, factors) instantiated in csrc/capacity.cu
 ROUND_SUMS_SHAPES = ((1, 1), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3))
+# (degree, factors per term) instantiated in csrc/capacity.cu: the GKR
+# phase polynomials ((2, 1), (2, 2)) and the dense layer polynomial (2, 3)
+ROUND_SUMS_TERMS_SHAPES = ((2, (2, 1)), (2, (2, 2)), (2, (2, 3)))
+FOLD_MAX_FACTORS = 5
 
 
-def partition(n: int) -> tuple[int, int]:
+def partition(n: int, n_terms: int = 1) -> tuple[int, int]:
     """(G, chunk): partial g of a sums kernel owns the pair indices
-    [g * chunk, (g + 1) * chunk) of n.  Each of THREADS threads adds at
-    most ceil(chunk / THREADS) limbs < 2^16 to a u32 accumulator, which is
-    exact while that count is <= 2^16."""
+    [g * chunk, (g + 1) * chunk) of n.  Each of THREADS threads adds, for
+    each of at most ceil(chunk / THREADS) pairs, n_terms limbs < 2^16 to
+    a u32 accumulator, which is exact while that count is <= 2^16."""
     G = max(1, min(MAX_PARTIALS, -(-n // THREADS)))
     chunk = -(-n // G)
-    if chunk > THREADS << 16:
-        raise ValueError(f"{n} pairs exceed the u32 accumulator bound")
+    if -(-chunk // THREADS) * n_terms > 1 << 16:
+        raise ValueError(f"{n} pairs of {n_terms} terms exceed the u32 accumulator bound")
     return G, chunk
 
 
-def _partials_plain(contrib: torch.Tensor) -> torch.Tensor:
+def _partials_plain(contrib: torch.Tensor, n_terms: int = 1) -> torch.Tensor:
     """(P, L, n) per-pair limb contributions -> (P, L, G) int64 partials,
     grouped exactly as the kernel's blocks are."""
     P, L, n = contrib.shape
-    G, chunk = partition(n)
+    G, chunk = partition(n, n_terms)
     c = contrib.long()
     if G * chunk > n:
         c = torch.cat([c, c.new_zeros((P, L, G * chunk - n))], dim=-1)
@@ -174,22 +182,7 @@ def fold_multi(field: Field, stack, size: int, rs, out):
 def round_sums_plain(field: Field, degree: int, stack, size: int):
     """(D+1, L, G) int64 partials of the round-poly sums at 0..D of the
     product of the k factors of a (k, L, cap) stack (prover.rs:49-56)."""
-    half = size // 2
-    contrib = []
-    for point in range(degree + 1):
-        prod = None
-        for t in range(stack.shape[0]):
-            left, right = stack[t, :, :half], stack[t, :, half:size]
-            if point == 0:
-                ev = left
-            elif point == 1:
-                ev = right
-            else:
-                r_i = dev.cached_const(field, point, True, stack.device)
-                ev = dev.lerp(field, left, right, r_i)
-            prod = ev if prod is None else dev.mont_mul(field, prod, ev)
-        contrib.append(prod)
-    return _partials_plain(torch.stack(contrib))
+    return round_sums_terms_plain(field, degree, (stack.shape[0],), stack, size)
 
 
 def round_sums(field: Field, degree: int, stack, size: int):
@@ -216,6 +209,114 @@ def round_sums(field: Field, degree: int, stack, size: int):
     _cuda.check(err, "round_sums")
     _cuda.count_launch("round_sums")
     return partials
+
+
+# --------------------------------------------------------------------------
+# round_sums_terms
+# --------------------------------------------------------------------------
+
+
+def round_sums_terms_plain(field: Field, degree: int, term_ks, stack, size: int):
+    """(D+1, L, G) int64 partials of the round-poly sums at 0..D of a sum of
+    products: rows [0, k_0) of the (sum(term_ks), L, cap) stack are the
+    first term's factors, the next k_1 rows the second's, and so on.  Each
+    term's product adds its limbs into the same partials, as in the
+    kernel."""
+    half = size // 2
+    contrib = []
+    for point in range(degree + 1):
+        total, row = None, 0
+        for k in term_ks:
+            prod = None
+            for _ in range(k):
+                left, right = stack[row, :, :half], stack[row, :, half:size]
+                if point == 0:
+                    ev = left
+                elif point == 1:
+                    ev = right
+                else:
+                    ev = dev.lerp(field, left, right, dev.cached_const(field, point, True, stack.device))
+                prod = ev if prod is None else dev.mont_mul(field, prod, ev)
+                row += 1
+            total = prod.long() if total is None else total + prod
+        contrib.append(total)
+    return _partials_plain(torch.stack(contrib), len(term_ks))
+
+
+def round_sums_terms(field: Field, degree: int, term_ks, stack, size: int):
+    """All D+1 round-polynomial sums of a sum of products over the live
+    prefix [0, size) of a (sum(term_ks), L, cap) stack, as (D+1, L, G)
+    int64 partial accumulators: per pair, the sum over the terms of the
+    product of their factors.  Replaces
+    zk_tpu/sumcheck/capacity.py::_round_sums_terms_cap."""
+    _check_stack(field, stack, size, "round_sums_terms")
+    term_ks = tuple(term_ks)
+    if not term_ks or min(term_ks) < 1 or sum(term_ks) != stack.shape[0]:
+        raise ValueError(f"round_sums_terms: term sizes {term_ks} do not split {stack.shape[0]} rows")
+    if not 1 <= degree <= MAX_DEGREE:
+        raise ValueError(f"round_sums_terms: degree {degree} not in 1..{MAX_DEGREE}")
+    G, chunk = partition(size // 2, len(term_ks))
+    if stack.device.type == "cpu":
+        return round_sums_terms_plain(field, degree, term_ks, stack, size)
+    _check_cuda(field, "round_sums_terms", stack)
+    if (degree, term_ks) not in ROUND_SUMS_TERMS_SHAPES:
+        raise ValueError(f"round_sums_terms: no kernel for (degree, term_ks) = {(degree, term_ks)}")
+    partials = torch.empty((degree + 1, field.n_limbs, G), dtype=torch.int64, device=stack.device)
+    err = _cuda.lib().zk_round_sums_terms(
+        field.n_limbs, degree, term_ks[0], term_ks[1], stack.data_ptr(),
+        field.n_limbs * stack.shape[2], stack.shape[2], size // 2, chunk, G,
+        _params(field).ctypes.data, partials.data_ptr(), _stream(stack),
+    )
+    _cuda.check(err, "round_sums_terms")
+    _cuda.count_launch("round_sums_terms")
+    return partials
+
+
+def term_sums(field: Field, degree: int, ks, stack, size: int):
+    """Round sums of the terms ks laid out in one stack: the k-factor
+    product kernel for one term, the sum-of-products kernel otherwise."""
+    if len(ks) == 1:
+        return round_sums(field, degree, stack, size)
+    return round_sums_terms(field, degree, ks, stack, size)
+
+
+# --------------------------------------------------------------------------
+# fold
+# --------------------------------------------------------------------------
+
+
+def fold_plain(field: Field, stack, size: int, r, out):
+    half = size // 2
+    for t in range(stack.shape[0]):
+        out[t, :, :half] = dev.lerp(field, stack[t, :, :half], stack[t, :, half:size], r)
+    return out
+
+
+def fold(field: Field, stack, size: int, r, out):
+    """Fold every factor of the live prefix of a (K, L, cap) stack at r
+    ((L, 1) int32 Montgomery): out[t, :, e] = lerp(stack[t, :, e],
+    stack[t, :, e + size/2], r) for e < size/2.  out may be the stack
+    itself (in place over the prefix) or a fresh buffer; returns out.
+    Replaces zk_tpu/sumcheck/capacity.py::_fold_cap."""
+    _check_stack(field, stack, size, "fold")
+    if r.dtype != torch.int32 or tuple(r.shape) != (field.n_limbs, 1):
+        raise ValueError("fold: r must be (L, 1) int32")
+    half = size // 2
+    _check_out(stack, out, half, "fold")
+    if stack.device.type == "cpu":
+        return fold_plain(field, stack, size, r, out)
+    _check_cuda(field, "fold", stack, r, out)
+    K = stack.shape[0]
+    if K > FOLD_MAX_FACTORS:
+        raise ValueError(f"fold: no kernel for {K} factors (at most {FOLD_MAX_FACTORS})")
+    err = _cuda.lib().zk_fold(
+        field.n_limbs, K, stack.data_ptr(), field.n_limbs * stack.shape[2], stack.shape[2],
+        out.data_ptr(), field.n_limbs * out.shape[2], out.shape[2], half, r.data_ptr(),
+        _params(field).ctypes.data, _stream(stack),
+    )
+    _cuda.check(err, "fold")
+    _cuda.count_launch("fold")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -268,32 +369,44 @@ def fold_halfsums(field: Field, stack, size: int, r, out):
 # --------------------------------------------------------------------------
 
 
-def run_device_rounds(field: Field, stack, rounds: int, pos: int, fold_last: bool, lo, hi, buf):
-    """Every device-resident round of a degree-1 single-factor prove
-    (prover.rs:44-68): per round the Fiat-Shamir step on the pending sums
-    (absorb, squeeze, challenge, all on the device), then the fused fold
-    at the fresh challenge, whose half sums are the next round's sums.
-    Nothing here waits on the device; the caller makes the one sync.
+def run_device_rounds(field: Field, degree: int, ks, stack, rounds: int, pos: int, fold_last: bool, lo, hi, buf):
+    """Every device-resident round of a prove (prover.rs:44-68): per round
+    the Fiat-Shamir step on the pending sums (absorb, squeeze, challenge,
+    all on the device), then the fold at the fresh challenge and the
+    folded table's sums for the next round.  Nothing here waits on the
+    device; the caller makes the one sync.
 
-    stack: (1, L, n) table; it is not modified (the first fold writes a
-    fresh half-size buffer, later folds run in place there).  Returns
-    (per-round sums [(L, 2) canonical], challenges [(L, 1) canonical],
-    lo, hi, buf, final table (live prefix only)).  The final table is
-    folded past the last round iff fold_last (the host tail continues
-    from it)."""
+    ks: factors per product term; stack: (sum(ks), L, n), the terms'
+    factor tables in order.  Degree 1 with one factor, ks = (1,), fuses
+    fold and next sums (fold_halfsums) and does not modify ``stack`` (the
+    first fold writes a fresh half-size buffer).  Every other shape runs
+    fold + round_sums / round_sums_terms per round and folds ``stack`` in
+    place: the caller passes a fresh buffer (the concatenated terms).
+
+    Returns (per-round sums [(L, D+1) canonical], challenges [(L, 1)
+    canonical], challenges [(L, 1) Montgomery, for device consumers such
+    as the GKR layer chain], lo, hi, buf, final stack (live prefix only)).
+    The final stack is folded past the last round iff fold_last (the host
+    tail continues from it)."""
     from zk_tpu_torch.sumcheck import kernels as K
 
+    ks = tuple(ks)
+    deg1 = (degree, ks) == (1, (1,))
     size = stack.shape[-1]
-    acc = round_sums(field, 1, stack, size)
-    sums, chs = [], []
-    owned = False  # the first fold writes a fresh buffer, later ones fold it in place
+    acc = term_sums(field, degree, ks, stack, size)
+    sums, chs, chs_mont = [], [], []
+    owned = not deg1  # a degree-1 prove's first fold writes a fresh buffer
     p = pos
     for rnd in range(rounds):
         last = rnd == rounds - 1
         lo, hi, buf, total, ch_c, ch_m = K.transcript_round(field, p, lo, hi, buf, acc)
         if not last or fold_last:
             out = stack if owned else stack.new_empty(stack.shape[:2] + (size // 2,))
-            if not last:
+            if not deg1:
+                stack = fold(field, stack, size, ch_m, out=out)
+                if not last:
+                    acc = term_sums(field, degree, ks, stack, size // 2)
+            elif not last:
                 stack, acc = fold_halfsums(field, stack, size, ch_m, out=out)
             else:
                 stack = fold_multi(field, stack, size, ch_m, out=out)
@@ -302,4 +415,5 @@ def run_device_rounds(field: Field, stack, rounds: int, pos: int, fold_last: boo
         p = 32
         sums.append(total)
         chs.append(ch_c)
-    return sums, chs, lo, hi, buf, stack[:, :, :size]
+        chs_mont.append(ch_m)
+    return sums, chs, chs_mont, lo, hi, buf, stack[:, :, :size]

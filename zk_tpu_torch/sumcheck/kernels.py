@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from zk_tpu.fields.field import Field, LIMB_BITS
+from zk_tpu_torch.fields.field import Field, LIMB_BITS
 from zk_tpu_torch.fields import device as dev
 from zk_tpu_torch.transcript import device as tdev
 

@@ -25,8 +25,8 @@ import functools
 import numpy as np
 import torch
 
-from zk_tpu.fields.field import Field
-from zk_tpu.transcript.keccak import _RC, _ROT
+from zk_tpu_torch.fields.field import Field
+from zk_tpu_torch.transcript.keccak import _RC, _ROT
 from zk_tpu_torch import _cuda
 from zk_tpu_torch.fields import device as dev
 
@@ -234,7 +234,7 @@ def serialize_canonical(field: Field, elems):
 # --------------------------------------------------------------------------
 
 
-def state_to_device(lanes, buf: bytes, device="cpu"):
+def state_to_device(lanes, buf: bytes, device):
     """Host sponge state (25 lane ints, pending bytes) -> (lo, hi, buf, pos)."""
     lo = torch.tensor([l & _M32 for l in lanes], dtype=torch.int64)
     hi = torch.tensor([l >> 32 for l in lanes], dtype=torch.int64)
