@@ -14,6 +14,14 @@ one.  Phases, each an uncaught exception on failure:
   2b. the GKR kernels against their plain versions, exact: fold (K = 1..5)
      and round_sums_terms (term sizes (2,1), (2,2), (2,3)) on Goldilocks and
      BLS12-381 Fr at 2^4, 2^12, 2^18, and at GKR's 2^19 (BLS12-381);
+  2c. the NTT path's kernels against their plain versions, exact:
+     ntt_ladder forward and inverse on Goldilocks, BLS12-381 Fr and
+     BLS12-377 Fr at lengths 2, 16 and 1024 with 1, 3 and 1024 rows;
+     mont_mul and lerp at 2^4, 2^12 and 2^20, lerp at 2^23 (BLS12-381);
+     each timed at its main-path shape;
+  2d. the HBM roofline reading: chained lerp folds of 2^23 BLS12-381
+     pairs through fields.kernels.lerp (benches/roofline.py's shape), the
+     share of 3.35 TB/s they reach, lerp's launches;
   3. tier differential at n = 14 (BLS12-381): the device-transcript prove
      equals the synced-kernel prove and the exact host-int prove;
   3b. GKR tier differential (BLS12-381): on a seeded random circuit of
@@ -28,6 +36,15 @@ one.  Phases, each an uncaught exception on failure:
      made on the card, a cold and 5 warm proves, the synced prove
      identical, verify (cold and warm) accepts, a flipped w_b is rejected,
      its four kernels (fold, round_sums_terms, fold_multi, keccak_f1600)
+     launched;
+  6. NTT main path: bench.py bench_ntt's Goldilocks 2^20 roundtrip on its
+     inputs (i * 0x12345 + 7) mod p, cold and 5 warm, and the same at 2^20
+     in BLS12-381 Fr on random limbs: intt(ntt(x)) == x, forward outputs at
+     k = 0, 1, 5, n - 1 against the DFT definition in host ints, the
+     kernel route's forward output equal to the plain route's; the
+     UnivariatePolynomial product of two degree-2^15 - 1 BLS12-381
+     polynomials (the NTT route) checked at a random point, and one of 300
+     coefficients equal to the schoolbook product; ntt_ladder and mont_mul
      launched.
 
 Before the last line it prints the per-kernel JSON line
@@ -37,6 +54,8 @@ launches on each kernel's path); the last line is the result object.
 
 from __future__ import annotations
 
+import contextlib
+import importlib
 import json
 import os
 import random
@@ -48,10 +67,11 @@ import time
 import numpy as np
 import torch
 
-from zk_tpu_torch import MLE, ProductPoly, SumcheckProver, SumcheckVerifier, _cuda
+from zk_tpu_torch import MLE, ProductPoly, SumcheckProver, SumcheckVerifier, UnivariatePolynomial, _cuda
 from zk_tpu_torch import transcript
-from zk_tpu_torch.fields import BLS12_381_FR, GOLDILOCKS
+from zk_tpu_torch.fields import BLS12_377_FR, BLS12_381_FR, GOLDILOCKS
 from zk_tpu_torch.fields import device as dev
+from zk_tpu_torch.fields import kernels as FK
 from zk_tpu_torch.gkr import GKRError, GKRProof, GKRProver, GKRVerifier, gkr_proof_to_bytes
 from zk_tpu_torch.gkr.chain import prove_chain
 from zk_tpu_torch.gkr.circuit import Circuit, Gate
@@ -61,11 +81,15 @@ from zk_tpu_torch.sumcheck import proof_to_bytes
 from zk_tpu_torch.transcript import device as tdev
 from zk_tpu_torch.utils import mle_eval_mults, sumcheck_prover_mults
 
+NTT = importlib.import_module("zk_tpu_torch.ntt")  # the package's own `ntt` attribute is the function
+
 FR = BLS12_381_FR
 KECCAK256_EMPTY = "c5d2460186f7233c927e7db2dcc703c0e500b653ca82273b7bfad8045d85a470"
 SIZES = (1 << 4, 1 << 12, 1 << 18)
 MAIN_N = 24
 GKR_LOG = 19  # bench.py bench_gkr: 2 layers of 2^19 gates over 2^19 inputs
+NTT_LOG = 20  # bench.py bench_ntt: the 2^20 roundtrip (BASELINE.json config 2)
+LERP_LOG = 23  # benches/roofline.py measure_lerp_rate: 2^23 pairs
 DEVICE = "cuda"
 GOLDEN_GKR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens", "gkr_d3w8_prove.bin")
 
@@ -76,9 +100,14 @@ KERNEL_INFO = {
     "keccak_f1600": ("zk_tpu_torch/csrc/keccak.cu", "zk_tpu/transcript/device.py:108"),
     "fold": ("zk_tpu_torch/csrc/capacity.cu", "zk_tpu/sumcheck/capacity.py:208"),
     "round_sums_terms": ("zk_tpu_torch/csrc/capacity.cu", "zk_tpu/sumcheck/capacity.py:149"),
+    "ntt_ladder": ("zk_tpu_torch/csrc/ntt.cu", "zk_tpu/ntt/__init__.py:215"),
+    "mont_mul": ("zk_tpu_torch/csrc/elementwise.cu", "zk_tpu/fields/pallas_kernels.py:68"),
+    "lerp": ("zk_tpu_torch/csrc/elementwise.cu", "zk_tpu/fields/pallas_kernels.py:87"),
 }
 SUMCHECK_KERNELS = ("fold_multi", "round_sums", "fold_halfsums", "keccak_f1600")
 GKR_KERNELS = ("fold", "round_sums_terms", "fold_multi", "keccak_f1600")
+NTT_KERNELS = ("ntt_ladder", "mont_mul")
+ROOFLINE_KERNELS = ("lerp",)
 
 # --------------------------------------------------------------------------
 # bounds: the least time the card could take for a call's work
@@ -346,6 +375,118 @@ def phase_gkr_kernels() -> dict:
     return timed
 
 
+def rand_rows(field, rows, n, gen) -> torch.Tensor:
+    """Random valid Montgomery limbs of shape (L, rows, n) on the card."""
+    return rand_limbs(field, (field.n_limbs, rows * n), gen).reshape(field.n_limbs, rows, n)
+
+
+def check_ntt_ladder(field, n_t, rows, inverse, gen, timed=False):
+    x = rand_rows(field, rows, n_t, gen)
+    want = NTT.ntt_ladder_plain(field, x, inverse)
+    got = NTT.ntt_ladder(field, x, inverse)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"ntt_ladder {field.name} n_t={n_t} rows={rows} inverse={inverse}: kernel != plain")
+    res = {"err": max_err(got, want)}
+    if timed:
+        res["ms"] = cuda_ms(lambda: NTT.ntt_ladder(field, x, inverse))
+        res["plain_ms"] = cuda_ms(lambda: NTT.ntt_ladder_plain(field, x, inverse), 2)
+        # rows in and out plus the packed twiddles; n_t/2 products per stage
+        # and row, and the n^-1 scale of every element when inverse
+        products = rows * (n_t // 2) * (n_t.bit_length() - 1) + (rows * n_t if inverse else 0)
+        res["bound"] = bound((2 * rows + 1) * n_t * elem_bytes(field), products, field=field)
+    return res
+
+
+def check_elementwise(field, n, gen, timed=False, names=("mont_mul", "lerp")):
+    """mont_mul and lerp at n elements; returns {name: result}."""
+    L = field.n_limbs
+    a, b = rand_limbs(field, (L, n), gen), rand_limbs(field, (L, n), gen)
+    r = rand_limbs(field, (L, 1), gen)
+    out = {}
+    for name, kern, plain, args in (("mont_mul", FK.mont_mul, FK.mont_mul_plain, (a, b)),
+                                     ("lerp", FK.lerp, FK.lerp_plain, (a, b, r))):
+        if name not in names:
+            continue
+        want = plain(field, *args)
+        got = kern(field, *args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {field.name} n={n}: kernel != plain")
+        res = {"err": max_err(got, want)}
+        if timed:
+            res["ms"] = cuda_ms(lambda: kern(field, *args))
+            res["plain_ms"] = cuda_ms(lambda: plain(field, *args), 2)
+            res["bound"] = bound(3 * n * elem_bytes(field), n, field=field)
+        out[name] = res
+        del want, got
+    return out
+
+
+def phase_ntt_kernels() -> dict:
+    """ntt_ladder, mont_mul and lerp against their plain versions at every
+    listed shape (exact); timed at the NTT path's shapes: one ladder pass
+    of the 2^20 transform (1024 rows of 1024), the 2^20 twiddle multiply,
+    and lerp at the roofline's 2^23 (all BLS12-381 in the JSON line)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    errs = {"ntt_ladder": 0, "mont_mul": 0, "lerp": 0}
+    for field in (GOLDILOCKS, FR, BLS12_377_FR):
+        for n_t in (2, 16, NTT.LADDER_MAX):
+            for rows in (1, 3, 1024):
+                for inverse in (False, True):
+                    errs["ntt_ladder"] = max(errs["ntt_ladder"], check_ntt_ladder(field, n_t, rows, inverse, gen)["err"])
+        for log_n in (4, 12, NTT_LOG):
+            for name, res in check_elementwise(field, 1 << log_n, gen).items():
+                errs[name] = max(errs[name], res["err"])
+        log(f"NTT kernels == plain versions: {field.name} (ntt_ladder n_t 2/16/{NTT.LADDER_MAX} x rows 1/3/1024, "
+            f"fwd+inv; mont_mul, lerp at 2^4/2^12/2^{NTT_LOG})")
+    rows = (1 << NTT_LOG) // NTT.LADDER_MAX
+    timed = {}
+    for field in (GOLDILOCKS, FR):
+        ladder = check_ntt_ladder(field, NTT.LADDER_MAX, rows, False, gen, timed=True)
+        elem = check_elementwise(field, 1 << NTT_LOG, gen, timed=True)
+        for name, res in (("ntt_ladder", ladder), ("mont_mul", elem["mont_mul"])):
+            log(f"  {name} {field.name} 2^{NTT_LOG} elements: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+                f"bound {res['bound'][0]:.4f} ms ({res['bound'][1]}), max_abs_err {res['err']}")
+        timed["ntt_ladder"], timed["mont_mul"] = ladder, elem["mont_mul"]
+    timed["lerp"] = check_elementwise(FR, 1 << LERP_LOG, gen, timed=True, names=("lerp",))["lerp"]
+    res = timed["lerp"]
+    log(f"  lerp BLS12-381 2^{LERP_LOG}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        f"bound {res['bound'][0]:.4f} ms ({res['bound'][1]}), max_abs_err {res['err']}")
+    for name in timed:
+        timed[name]["err"] = max(errs[name], timed[name]["err"])
+    torch.cuda.empty_cache()
+    return timed
+
+
+def phase_roofline(reps: int = 12) -> dict:
+    """benches/roofline.py's HBM reading on the card: chained lerp folds of
+    2^23 BLS12-381 pairs through fields.kernels.lerp, one kernel each;
+    returns lerp's launches."""
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    L, n = FR.n_limbs, 1 << LERP_LOG
+    right = rand_limbs(FR, (L, n), gen)
+    state = [rand_limbs(FR, (L, n), gen)]
+    r = dev.scalar(FR, 123456789, device=DEVICE)
+
+    def fold():
+        state[0] = FK.lerp(FR, state[0], right, r)
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    ms = cuda_ms(fold, reps)
+    counts = _cuda.launches()
+    nbytes = 3 * n * elem_bytes(FR)
+    log(f"lerp roofline 2^{LERP_LOG} BLS12-381 (chained folds): {ms:.4f} ms per fold, "
+        f"{nbytes / ms / 1e9:.4f} TB/s = {nbytes / ms / 1e-3 / HBM_BYTES_PER_S:.2%} of 3.35 TB/s; "
+        f"lerp launches {counts['lerp']}")
+    if counts["lerp"] == 0:
+        raise AssertionError("the roofline phase never launched lerp")
+    del state, right
+    torch.cuda.empty_cache()
+    return counts
+
+
 def random_circuit(rng, depth, width, n_inputs) -> Circuit:
     """tests/test_gkr.py's seeded layered circuit."""
     layers, below = [], n_inputs
@@ -440,6 +581,89 @@ def phase_gkr_main(reps: int = 5) -> dict:
     if accepted:
         raise AssertionError("GKR verifier accepted a proof with a flipped w_b")
     log(f"GKR proof with a flipped w_b rejected; proof {len(gkr_proof_to_bytes(FR, proof))} bytes")
+    torch.cuda.empty_cache()
+    return counts
+
+
+@contextlib.contextmanager
+def plain_route():
+    """The NTT's recursion with the plain versions in place of its two
+    kernels (on CUDA tensors the wrappers would launch them)."""
+    saved = NTT.ntt_ladder, NTT.mont_mul
+    NTT.ntt_ladder, NTT.mont_mul = NTT.ntt_ladder_plain, FK.mont_mul_plain
+    try:
+        yield
+    finally:
+        NTT.ntt_ladder, NTT.mont_mul = saved
+
+
+def dft_at(field, vals: list[int], k: int) -> int:
+    """Output k of the DFT of vals, from its definition (Horner in w^k)."""
+    w = pow(field.get_root_of_unity(len(vals)), k, field.p)
+    acc = 0
+    for v in reversed(vals):
+        acc = (acc * w + v) % field.p
+    return acc
+
+
+def ntt_roundtrip(field, data, name: str, reps: int) -> None:
+    """Cold and warm roundtrips (each ending in a readback), exact
+    roundtrip, forward spot checks, kernel route == plain route."""
+    n = data.shape[1]
+
+    def roundtrip():
+        return NTT.intt_device(field, NTT.ntt_device(field, data))[:1, :1].cpu()
+
+    cold = timed_runs(roundtrip, 1)[0]
+    warm = timed_runs(roundtrip, reps)
+    log(f"ntt+intt roundtrip 2^{n.bit_length() - 1} {name}: cold {cold:.6f} s; warm {spread(warm)}")
+    fwd = NTT.ntt_device(field, data)
+    if not torch.equal(NTT.intt_device(field, fwd), data):
+        raise AssertionError(f"{name}: intt(ntt(x)) != x at 2^{n.bit_length() - 1}")
+    vals = dev.decode_ints(field, data)
+    ks = (0, 1, 5, n - 1)
+    got = dev.decode_ints(field, fwd[:, list(ks)])
+    if got != [dft_at(field, vals, k) for k in ks]:
+        raise AssertionError(f"{name}: forward outputs at k = {ks} differ from the DFT definition")
+    with plain_route():
+        plain = NTT.ntt_device(field, data)
+    if not torch.equal(plain, fwd):
+        raise AssertionError(f"{name}: kernel route != plain route at 2^{n.bit_length() - 1}")
+    log(f"  {name}: intt(ntt(x)) == x; outputs at k = {ks} == DFT definition; kernel route == plain route")
+
+
+def phase_ntt_main(reps: int = 5) -> dict:
+    """The NTT path at BASELINE config 2's size; returns its launch counts."""
+    n = 1 << NTT_LOG
+    g = GOLDILOCKS
+    gold = dev.encode_ints(g, [(i * 0x12345 + 7) % g.p for i in range(n)], device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    bls = rand_limbs(FR, (FR.n_limbs, n), gen)
+    torch.cuda.synchronize()
+
+    _cuda.reset_launches()
+    ntt_roundtrip(g, gold, "Goldilocks (bench_ntt inputs)", reps)
+    ntt_roundtrip(FR, bls, "BLS12-381 Fr (random limbs)", reps)
+    rng = random.Random(17)
+    a = UnivariatePolynomial(FR, [rng.randrange(FR.p) for _ in range(1 << 15)])
+    b = UnivariatePolynomial(FR, [rng.randrange(FR.p) for _ in range(1 << 15)])
+    t0 = time.perf_counter()
+    prod = a * b
+    t_mul = time.perf_counter() - t0
+    x = rng.randrange(FR.p)
+    if prod.degree() != (1 << 16) - 2 or prod.evaluate(x) != a.evaluate(x) * b.evaluate(x) % FR.p:
+        raise AssertionError("UnivariatePolynomial NTT product of degree-2^15 - 1 polynomials is wrong at a random point")
+    small_a = UnivariatePolynomial(FR, [rng.randrange(FR.p) for _ in range(150)])
+    small_b = UnivariatePolynomial(FR, [rng.randrange(FR.p) for _ in range(151)])
+    if small_a * small_b != small_a._mul_schoolbook(small_b):
+        raise AssertionError("UnivariatePolynomial NTT product of 300 coefficients != schoolbook")
+    counts = _cuda.launches()
+    log(f"UnivariatePolynomial BLS12-381 2^15 x 2^15 coefficients (NTT route, 2^16 transforms): {t_mul:.6f} s; "
+        f"== a(x) b(x) at a random point; 300-coefficient product == schoolbook")
+    log(f"NTT path kernel launches: {counts}")
+    missing = [k for k in NTT_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"NTT path never launched {missing}")
     torch.cuda.empty_cache()
     return counts
 
@@ -550,20 +774,26 @@ def main() -> int:
     name = phase_device()
     timed = phase_kernels()
     timed.update(phase_gkr_kernels())
+    timed.update(phase_ntt_kernels())
+    roofline_counts = phase_roofline()
     phase_tier_differential()
     phase_gkr_differential()
     counts = phase_main_path()
     gkr_counts = phase_gkr_main()
+    ntt_counts = phase_ntt_main()
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():
         res = timed[kname]
-        path_counts = counts if kname in SUMCHECK_KERNELS else gkr_counts
+        path_counts = (counts if kname in SUMCHECK_KERNELS else gkr_counts if kname in GKR_KERNELS
+                       else ntt_counts if kname in NTT_KERNELS else roofline_counts)
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path_counts[kname], "max_abs_err": res["err"],
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
-            "library_ms": None,  # no single PyTorch call folds or sums Montgomery limbs
+            # no single PyTorch call folds, sums or multiplies Montgomery limbs,
+            # and torch.fft is complex floating point, not a finite-field DFT
+            "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

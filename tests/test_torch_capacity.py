@@ -5,6 +5,10 @@ fold_multi    vs zk_tpu.poly.mle._fold_kernel
 round_sums    vs zk_tpu.sumcheck.kernels._sums_jnp_stack
 fold_halfsums vs zk_tpu.sumcheck.kernels._fold_stack_inner + half sums
 
+The BLS12-381 cases of the folds are held against the definition in host
+ints instead, the oracle JAX's own CPU tests use for those functions: a
+JAX BLS12-381 compile costs seconds per shape on the CPU.
+
 The CUDA kernels themselves run only on a card: the ``cuda`` tests below
 compare them with these plain versions there and skip elsewhere.
 """
@@ -22,8 +26,10 @@ from zk_tpu.sumcheck.kernels import _fold_stack_inner, _sums_jnp_stack
 from zk_tpu_torch import interop
 from zk_tpu_torch.fields import BLS12_381_FR, GOLDILOCKS
 from zk_tpu_torch.fields import device as tdev
+from zk_tpu_torch.fields.kernels import field_params
 from zk_tpu_torch.poly.mle import MLE
 from zk_tpu_torch.sumcheck import capacity as C
+from torch_helpers import host_ints, lerp_int, mont_limbs
 
 torch.set_num_threads(1)
 
@@ -53,16 +59,29 @@ def _mont_sums(field, partials):
 CASES = [("Goldilocks", 8, f) for f in (1, 2, 3, 4)] + [("BLS12-381-Fr", 6, 1)]
 
 
+def _host_fold(field, vals, r):
+    h = len(vals) // 2
+    return [lerp_int(field, vals[e], vals[e + h], r) for e in range(h)]
+
+
 @pytest.mark.parametrize("field,n,f", CASES, ids=lambda v: getattr(v, "name", v))
 def test_fold_multi_plain_matches_fold_kernel(field, n, f):
+    """Goldilocks against JAX's jnp fold; BLS12-381 against the fold's
+    definition in host ints (a JAX BLS12-381 compile costs ~10 s here)."""
     jf, field = JF[field], TF[field]
     data = _table(field, (field.n_limbs, 1 << n), 10 + f)
     rs = _table(field, (field.n_limbs, f), 20 + f)
-    want = _fold_kernel(jf, n, 0, f, jnp.asarray(data), jnp.asarray(rs.T.copy()))
+    if field is GOLDILOCKS:
+        want = np.asarray(_fold_kernel(jf, n, 0, f, jnp.asarray(data), jnp.asarray(rs.T.copy())))
+    else:
+        vals = host_ints(field, data)
+        for r in host_ints(field, rs):
+            vals = _host_fold(field, vals, r)
+        want = mont_limbs(field, vals)
     stack = _cpu(data).reshape(1, field.n_limbs, -1)
     t_rs = _cpu(rs)
     out = C.fold_multi_plain(field, stack, 1 << n, t_rs, stack.new_zeros((1, field.n_limbs, 1 << (n - f))))
-    np.testing.assert_array_equal(interop.limbs_to_numpy(out[0]), np.asarray(want))
+    np.testing.assert_array_equal(interop.limbs_to_numpy(out[0]), want)
     # the CPU wrapper, in place and into a fresh buffer, is the same fold
     fresh = C.fold_multi(field, stack, 1 << n, t_rs, out=stack.new_empty((1, field.n_limbs, 1 << (n - f))))
     inplace = stack.clone()
@@ -134,16 +153,27 @@ def test_round_sums_partials_layout():
 
 @pytest.mark.parametrize("field", list(TF))
 def test_fold_halfsums_plain_matches_fold_and_half_sums(field):
+    """Goldilocks against JAX's jnp fold and sums; BLS12-381 against their
+    definitions in host ints."""
     jf, field = JF[field], TF[field]
     n = 7
     data = _table(field, (1, field.n_limbs, 1 << n), 60)
-    r = jdev.scalar(jf, 0x1F2E3D4C5B6A % field.p)
-    folded = _fold_stack_inner(jf, 1, 1 << n, jnp.asarray(data), r)
-    halves = _sums_jnp_stack(jf, 1, folded)  # (2, L): p(0), p(1) of the next round
+    r_int = 0x1F2E3D4C5B6A % field.p
+    if field is GOLDILOCKS:
+        r = jdev.scalar(jf, r_int)
+        folded = _fold_stack_inner(jf, 1, 1 << n, jnp.asarray(data), r)
+        halves = _sums_jnp_stack(jf, 1, folded)  # (2, L): p(0), p(1) of the next round
+        folded, halves = np.asarray(folded), np.asarray(halves).T
+    else:
+        vals = _host_fold(field, host_ints(field, data[0]), r_int)
+        q = len(vals) // 2
+        folded = mont_limbs(field, vals)[None]
+        halves = mont_limbs(field, [sum(vals[:q]), sum(vals[q:])])
     stack = _cpu(data)
-    out, acc = C.fold_halfsums(field, stack, 1 << n, _cpu(np.asarray(r)), out=stack)
-    np.testing.assert_array_equal(interop.limbs_to_numpy(out[:, :, : 1 << (n - 1)]), np.asarray(folded))
-    np.testing.assert_array_equal(interop.limbs_to_numpy(_mont_sums(field, acc)), np.asarray(halves).T)
+    r = tdev.scalar(field, r_int, device="cpu")
+    out, acc = C.fold_halfsums(field, stack, 1 << n, r, out=stack)
+    np.testing.assert_array_equal(interop.limbs_to_numpy(out[:, :, : 1 << (n - 1)]), folded)
+    np.testing.assert_array_equal(interop.limbs_to_numpy(_mont_sums(field, acc)), halves)
 
 
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 1 << 12, 1 << 23, 1 << 30])
@@ -173,7 +203,7 @@ def test_wrappers_reject_bad_inputs():
 
 def test_params_words():
     for field in (GOLDILOCKS, BLS12_381_FR):
-        w = C._params(field)
+        w = field_params(field)
         nw = field.n_limbs // 2
         p = sum(int(w[i]) << (32 * i) for i in range(nw))
         assert p == field.p

@@ -1,6 +1,7 @@
 """zk_tpu_torch imports nothing of JAX or zk_tpu, puts its entry points on
 the card by default, and never falls back from a kernel."""
 
+import importlib
 import os
 import subprocess
 import sys
@@ -8,11 +9,16 @@ import sys
 import pytest
 import torch
 
-from zk_tpu_torch import MLE, GKRProver, _cuda
+from zk_tpu_torch import MLE, GKRProver, UnivariatePolynomial, _cuda
 from zk_tpu_torch.fields import BLS12_381_FR as FR
+from zk_tpu_torch.fields import F17, GOLDILOCKS
+from zk_tpu_torch.fields import device as dev
+from zk_tpu_torch.fields import kernels as FK
 from zk_tpu_torch.gkr.circuit import Circuit, Gate
 from zk_tpu_torch.sumcheck import capacity as C
 from zk_tpu_torch.transcript import device as tdev
+
+N = importlib.import_module("zk_tpu_torch.ntt")
 
 torch.set_num_threads(1)
 
@@ -27,7 +33,8 @@ def test_import_leaves_jax_out():
         "import zk_tpu_torch\n"
         "for m in pkgutil.walk_packages(zk_tpu_torch.__path__, 'zk_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "assert 'zk_tpu_torch.gkr.chain' in sys.modules\n"
+        "for m in ('zk_tpu_torch.gkr.chain', 'zk_tpu_torch.ntt', 'zk_tpu_torch.fields.kernels'):\n"
+        "    assert m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'zk_tpu') or m.startswith(('jax', 'zk_tpu.')))\n"
         "assert not bad, bad\n"
         "assert zk_tpu_torch._cuda._LIB is None  # importing builds nothing\n"
@@ -82,10 +89,17 @@ def test_cpu_wrappers_do_not_count_launches():
     C.round_sums_terms(FR, 2, (2, 2), terms, 8)
     z = torch.zeros(25, dtype=torch.int64)
     tdev.keccak_f1600_device(z, z)
+    x = torch.zeros((L, 2, 8), dtype=torch.int32)
+    a = torch.zeros((L, 8), dtype=torch.int32)
+    N.ntt_ladder(FR, x, True)
+    FK.mont_mul(FR, a, a)
+    FK.lerp(FR, a, a, r)
+    N.ntt(FR, list(range(2048)), device="cpu")  # two ladder levels and a twiddle multiply
     assert all(v == 0 for v in _cuda.launches().values())
 
 
-@pytest.mark.parametrize("kernel", ["fold_multi", "round_sums", "fold_halfsums", "keccak", "fold", "round_sums_terms"])
+@pytest.mark.parametrize("kernel", ["fold_multi", "round_sums", "fold_halfsums", "keccak", "fold", "round_sums_terms",
+                                    "ntt_ladder", "mont_mul", "lerp"])
 def test_no_fallback_on_other_devices(kernel):
     """A tensor that is neither on the CPU nor on a CUDA card raises; it
     never takes the plain version."""
@@ -101,6 +115,9 @@ def test_no_fallback_on_other_devices(kernel):
         "keccak": lambda: tdev.keccak_f1600_device(z, z),
         "fold": lambda: C.fold(FR, terms, 8, r, out=terms),
         "round_sums_terms": lambda: C.round_sums_terms(FR, 2, (2, 1), terms, 8),
+        "ntt_ladder": lambda: N.ntt_ladder(FR, stack.reshape(L, 1, 8), False),
+        "mont_mul": lambda: FK.mont_mul(FR, stack[0], stack[0]),
+        "lerp": lambda: FK.lerp(FR, stack[0], stack[0], r),
     }
     with pytest.raises(ValueError, match="unsupported device"):
         calls[kernel]()
@@ -120,4 +137,63 @@ def test_entry_points_default_to_the_card():
     circuit = Circuit([[Gate("mul", 0, 1)]], n_inputs=2)
     with pytest.raises((RuntimeError, AssertionError)):
         GKRProver.prove(FR, circuit, [3, 5])
+    with pytest.raises((RuntimeError, AssertionError)):
+        N.ntt(FR, [1, 2, 3, 4])
+    with pytest.raises((RuntimeError, AssertionError)):
+        N.intt(FR, [1, 2, 3, 4])
+    with pytest.raises((RuntimeError, AssertionError)):
+        N.ntt_with_root(F17, [1, 2, 3, 4], 13)
+    big = UnivariatePolynomial(FR, list(range(1, 200)))
+    with pytest.raises((RuntimeError, AssertionError)):
+        big * big  # 397 coefficients: the NTT route, on the card
     assert MLE.new(FR, 2, [1, 2, 3, 4], device="cpu").data.device.type == "cpu"
+
+
+# --------------------------------------------------------------------------
+# on the card only: the NTT path's kernels against their plain versions
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rand_limbs(field, shape, gen, device):
+    t = torch.randint(0, 1 << 16, shape, generator=gen, dtype=torch.int32)
+    L = field.n_limbs
+    t[L - 1] &= (1 << ((field.p >> (16 * (L - 1))).bit_length() - 1)) - 1  # < p
+    return t.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [GOLDILOCKS, FR], ids=lambda f: f.name)
+def test_cuda_ntt_ladder_matches_plain(cuda, field):
+    gen = torch.Generator().manual_seed(3)
+    for n_t, rows in ((2, 3), (16, 1), (N.LADDER_MAX, 5)):
+        x = _rand_limbs(field, (field.n_limbs, rows, n_t), gen, cuda)
+        for inverse in (False, True):
+            assert torch.equal(N.ntt_ladder(field, x, inverse), N.ntt_ladder_plain(field, x, inverse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [GOLDILOCKS, FR], ids=lambda f: f.name)
+def test_cuda_mont_mul_and_lerp_match_plain(cuda, field):
+    gen = torch.Generator().manual_seed(4)
+    for n in (1, 1000, 1 << 12):
+        a = _rand_limbs(field, (field.n_limbs, n), gen, cuda)
+        b = _rand_limbs(field, (field.n_limbs, n), gen, cuda)
+        r = _rand_limbs(field, (field.n_limbs, 1), gen, cuda)
+        assert torch.equal(FK.mont_mul(field, a, b), FK.mont_mul_plain(field, a, b))
+        assert torch.equal(FK.lerp(field, a, b, r), FK.lerp_plain(field, a, b, r))
+
+
+@pytest.mark.cuda
+def test_cuda_refuses_f17_naming_it(cuda):
+    x = dev.encode_ints(F17, list(range(8)), device=cuda)
+    with pytest.raises(ValueError, match="F17"):
+        FK.mont_mul(F17, x, x)
+    with pytest.raises(ValueError, match="F17"):
+        N.ntt_device(F17, x)

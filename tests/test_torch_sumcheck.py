@@ -33,6 +33,7 @@ from zk_tpu_torch import (
 )
 from zk_tpu_torch.fields import BLS12_381_FR, GOLDILOCKS
 from zk_tpu_torch.poly.univariate import UnivariatePolynomial
+from torch_helpers import once_per_session
 
 torch.set_num_threads(1)
 
@@ -125,22 +126,30 @@ def _table(field, n, seed):
     return a
 
 
-@pytest.fixture(scope="module")
-def jax_runs():
-    """zk_tpu's proofs on each slice table (computed once per module)."""
+def _jax_proofs():
     import jax.numpy as jnp
 
     out = {}
     for name, (_, n) in SLICE.items():
         field = JF[name]
-        data = _table(field, n, 99)
-        jpoly = JProductPoly([JMLE(field, n, jnp.asarray(data))])
+        jpoly = JProductPoly([JMLE(field, n, jnp.asarray(_table(field, n, 99)))])
         total = sum(jpoly.polynomials[0].evaluation_ints()) % field.p
         part, chs = jsc.SumcheckProver.prove_partial(jpoly, total, max_var_degree=1, device_transcript=False)
         full = jsc.SumcheckProver.prove(jpoly, total, max_var_degree=1, device_transcript=False)
-        out[name] = dict(data=data, total=total, partial=jsc.proof_to_bytes(field, part), challenges=chs,
-                         full=jsc.proof_to_bytes(field, full))
+        out[name] = dict(total=total, partial=jsc.proof_to_bytes(field, part).hex(), challenges=chs,
+                         full=jsc.proof_to_bytes(field, full).hex())
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_runs(tmp_path_factory):
+    """zk_tpu's proofs on each slice table (computed once per session)."""
+    runs = once_per_session(tmp_path_factory, "jax_sumcheck_runs", _jax_proofs)
+    for name, (_, n) in SLICE.items():
+        run = runs[name]
+        run["data"] = _table(JF[name], n, 99)
+        run["partial"], run["full"] = bytes.fromhex(run["partial"]), bytes.fromhex(run["full"])
+    return runs
 
 
 def _port_poly(name, run):
@@ -214,9 +223,9 @@ def test_device_transcript_matches_jax_device_transcript():
     assert chs == jchs
 
 
-def test_general_rounds_above_tail_not_implemented():
-    """Degree-2 rounds above the tail, once refused, now run the fold and
-    round-sums kernels' tier and give the host tier's proof."""
+def test_general_rounds_above_tail_equal_host_tier():
+    """Degree-2 rounds above the tail run the fold and round-sums kernels'
+    tier and give the host tier's proof."""
     field = GOLDILOCKS
     a = MLE.new(field, 4, list(range(16)), device="cpu")
     total = sum(x * x for x in range(16))

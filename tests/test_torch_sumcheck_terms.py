@@ -2,6 +2,8 @@
 
 fold_plain             vs zk_tpu.sumcheck._fold_kernel
 round_sums_terms_plain vs zk_tpu.sumcheck._round_sums_kernel (decoded)
+(BLS12-381 cases of these two against their definitions in host ints:
+a JAX BLS12-381 compile of them costs 10-30 s on the CPU)
 SumcheckProver on a two-term SumOfProducts above the host tail, in every
 tier, vs zk_tpu's SumcheckProver._prove_internal, with and without
 binding the claimed sum.
@@ -26,10 +28,12 @@ from zk_tpu.poly import SumOfProducts as JSumOfProducts
 from zk_tpu.transcript import Transcript as JTranscript
 from zk_tpu_torch import MLE, ProductPoly, SumcheckProver, SumcheckVerifier, SumOfProducts, interop
 from zk_tpu_torch.fields import BLS12_381_FR, GOLDILOCKS
+from zk_tpu_torch.fields import device as dev
 from zk_tpu_torch.sumcheck import capacity as C
 from zk_tpu_torch.sumcheck import kernels as K
 from zk_tpu_torch.sumcheck import proof_to_bytes
 from zk_tpu_torch.transcript import Transcript
+from torch_helpers import host_ints, lerp_int, mont_limbs, once_per_session
 
 torch.set_num_threads(1)
 
@@ -62,32 +66,67 @@ def _jtables(data, term_ks):
 @pytest.mark.parametrize("k", [1, 3, 4])
 @pytest.mark.parametrize("field", list(TF))
 def test_fold_plain_matches_fold_kernel(field, k):
+    """Goldilocks against JAX's fold; BLS12-381 against the fold's
+    definition in host ints (no JAX BLS12-381 compile)."""
     jf, field = JF[field], TF[field]
     n, L = 9, field.n_limbs
     data = _table(field, (k, L, 1 << n), 80 + k)
-    r = jdev.scalar(jf, 0x5EED1234ABCD % field.p)
-    want = jsc._fold_kernel(jf, _jtables(data, (k,)), r)[0]
-    stack, tr = _cpu(data), _cpu(np.asarray(r))
+    r_int = 0x5EED1234ABCD % field.p
+    if field is GOLDILOCKS:
+        want = [np.asarray(w) for w in jsc._fold_kernel(jf, _jtables(data, (k,)), jdev.scalar(jf, r_int))[0]]
+    else:
+        h = 1 << (n - 1)
+        want = []
+        for t in range(k):
+            vals = host_ints(field, data[t])
+            want.append(mont_limbs(field, [lerp_int(field, vals[e], vals[e + h], r_int) for e in range(h)]))
+    stack, tr = _cpu(data), dev.scalar(field, r_int, device="cpu")
     fresh = C.fold(field, stack, 1 << n, tr, out=stack.new_empty((k, L, 1 << (n - 1))))
     for t in range(k):
-        np.testing.assert_array_equal(interop.limbs_to_numpy(fresh[t]), np.asarray(want[t]))
+        np.testing.assert_array_equal(interop.limbs_to_numpy(fresh[t]), want[t])
     inplace = stack.clone()
     C.fold(field, inplace, 1 << n, tr, out=inplace)
     assert torch.equal(inplace[:, :, : 1 << (n - 1)], fresh)
     assert torch.equal(C.fold_plain(field, stack, 1 << n, tr, stack.clone()), inplace)
 
 
+def _host_round_sums(field, degree, term_ks, data):
+    """The round-poly sums of a sum of products at 0..degree, by their
+    definition in host ints: sum over pairs and terms of the product of
+    the factors' lerps at each point."""
+    rows = [host_ints(field, d) for d in data]
+    h = len(rows[0]) // 2
+    sums = []
+    for pt in range(degree + 1):
+        total, row = 0, 0
+        for k in term_ks:
+            for e in range(h):
+                prod = 1
+                for j in range(row, row + k):
+                    prod = prod * lerp_int(field, rows[j][e], rows[j][e + h], pt) % field.p
+                total += prod
+            row += k
+        sums.append(total % field.p)
+    return sums
+
+
 @pytest.mark.parametrize("term_ks", [(2, 1), (2, 2)], ids=str)
 @pytest.mark.parametrize("field", list(TF))
 def test_round_sums_terms_plain_matches_round_sums_kernel(field, term_ks):
+    """Goldilocks against JAX's _round_sums_kernel; BLS12-381 against the
+    sums' definition in host ints (no JAX BLS12-381 compile)."""
     jf, field = JF[field], TF[field]
     n = 8
     data = _table(field, (sum(term_ks), field.n_limbs, 1 << n), 90 + sum(term_ks))
-    want = jsc._round_sums_kernel(jf, 2, _jtables(data, term_ks))  # (D+1, L) Montgomery
+    if field is GOLDILOCKS:
+        want = jsc._round_sums_kernel(jf, 2, _jtables(data, term_ks))  # (D+1, L) Montgomery
+        want = jdev.decode_ints(jf, np.asarray(want).T)
+    else:
+        want = _host_round_sums(field, 2, term_ks, data)
     got = C.round_sums_terms(field, 2, term_ks, _cpu(data), 1 << n)
     assert got.shape == (3, field.n_limbs, C.partition(1 << (n - 1), 2)[0])
     assert torch.equal(got, C.round_sums_terms_plain(field, 2, term_ks, _cpu(data), 1 << n))
-    assert K.decode_sums(field, got) == jdev.decode_ints(jf, np.asarray(want).T)
+    assert K.decode_sums(field, got) == want
 
 
 def test_round_sums_terms_checks_shapes_and_bound():
@@ -131,10 +170,7 @@ def _claim(poly):
     return sum(a * b for t in vals for a, b in zip(*t)) % f.p
 
 
-@pytest.fixture(scope="module")
-def jax_proofs():
-    """zk_tpu's proofs of each table, with and without the sum bound (its
-    exact host tier, which its own tests hold equal to its device tiers)."""
+def _jax_proofs():
     out = {}
     for name, n in SIZES.items():
         jf, tf = JF[name], TF[name]
@@ -148,8 +184,18 @@ def jax_proofs():
             proof, chs = jsc.SumcheckProver._prove_internal(
                 jpoly, total, tr, max_var_degree=2, tail_size=1 << 30, bind_sum=bind
             )
-            out[name, bind] = (jsc.proof_to_bytes(jf, proof), chs, tr.sample_challenge())
+            out[f"{name}/{bind}"] = (jsc.proof_to_bytes(jf, proof).hex(), chs, tr.sample_challenge().hex())
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_proofs(tmp_path_factory):
+    """zk_tpu's proofs of each table, with and without the sum bound (its
+    exact host tier, which its own tests hold equal to its device tiers),
+    computed once per session."""
+    runs = once_per_session(tmp_path_factory, "jax_sum_of_products_proofs", _jax_proofs)
+    return {(key.split("/")[0], key.endswith("True")): (bytes.fromhex(proof), chs, bytes.fromhex(nxt))
+            for key, (proof, chs, nxt) in runs.items()}
 
 
 TIERS = {

@@ -37,7 +37,10 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
-KERNELS = ("fold_multi", "round_sums", "fold_halfsums", "keccak_f1600", "fold", "round_sums_terms")
+KERNELS = (
+    "fold_multi", "round_sums", "fold_halfsums", "keccak_f1600", "fold", "round_sums_terms",
+    "ntt_ladder", "mont_mul", "lerp",
+)
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -125,6 +128,9 @@ def lib() -> ctypes.CDLL:
         so.zk_keccak_f1600.argtypes = [P, P, P, P, I, P]
         so.zk_fold.argtypes = [I, I, P, I64, I64, P, I64, I64, I64, P, P, P]
         so.zk_round_sums_terms.argtypes = [I, I, I, I, P, I64, I64, I64, I64, I, P, P, P]
+        so.zk_ntt_ladder.argtypes = [I, P, P, I64, I, P, P, P, P]
+        so.zk_mont_mul.argtypes = [I, P, P, P, I64, P, P]
+        so.zk_lerp.argtypes = [I, P, P, P, P, I64, P, P]
         for name in KERNELS:
             getattr(so, f"zk_{name}").restype = ctypes.c_int
         _LIB = so

@@ -235,18 +235,12 @@ round_sums_terms_kernel(const uint32_t* stack, int64_t fac_stride, int64_t row_s
   block_reduce_store<(D + 1) * L>(acc, partials, G);
 }
 
-int grid_for(int64_t n) {
-  int64_t blocks = (n + THREADS - 1) / THREADS;
-  const int64_t cap = 132 * 16;  // enough resident waves on 132 SMs
-  return (int)(blocks < 1 ? 1 : (blocks > cap ? cap : blocks));
-}
-
 template <int NW>
 int fold_multi_nw(int f, const uint32_t* in, int64_t in_stride, uint32_t* out,
                   int64_t out_stride, int64_t out_n, const uint32_t* rs, const uint32_t* params,
                   cudaStream_t s) {
   const FieldParams<NW> fp = load_params<NW>(params);
-  const int grid = grid_for(out_n);
+  const int grid = grid_for(out_n, THREADS);
   switch (f) {
     case 1: fold_multi_kernel<NW, 1><<<grid, THREADS, 0, s>>>(in, in_stride, out, out_stride, out_n, rs, fp); break;
     case 2: fold_multi_kernel<NW, 2><<<grid, THREADS, 0, s>>>(in, in_stride, out, out_stride, out_n, rs, fp); break;
@@ -285,7 +279,7 @@ int fold_nw(int K, const uint32_t* in, int64_t in_fac, int64_t in_stride, uint32
             int64_t out_fac, int64_t out_stride, int64_t half, const uint32_t* r,
             const uint32_t* params, cudaStream_t s) {
   const FieldParams<NW> fp = load_params<NW>(params);
-  const int grid = grid_for(half);
+  const int grid = grid_for(half, THREADS);
 #define ZK_FOLD(k)                                                                           \
   case k:                                                                                    \
     fold_kernel<NW, k><<<grid, THREADS, 0, s>>>(in, in_fac, in_stride, out, out_fac, out_stride, \

@@ -25,7 +25,7 @@ struct FieldParams {
 };
 
 // Host-side parameter block layout (uint32 words), as written by
-// zk_tpu_torch/sumcheck/capacity.py::_params: p[NW], pinv, pts[4][NW].
+// zk_tpu_torch/fields/kernels.py::field_params: p[NW], pinv, pts[4][NW].
 template <int NW>
 inline FieldParams<NW> load_params(const uint32_t* host) {
   FieldParams<NW> fp;
@@ -34,6 +34,14 @@ inline FieldParams<NW> load_params(const uint32_t* host) {
   for (int i = 0; i < 4; ++i)
     for (int w = 0; w < NW; ++w) fp.pts[i][w] = host[NW + 1 + i * NW + w];
   return fp;
+}
+
+// Blocks of a grid-stride loop over n elements, `threads` per block: one
+// block per `threads` elements, at most 16 resident waves on 132 SMs.
+inline int grid_for(int64_t n, int threads) {
+  const int64_t blocks = (n + threads - 1) / threads;
+  const int64_t cap = 132 * 16;
+  return (int)(blocks < 1 ? 1 : (blocks > cap ? cap : blocks));
 }
 
 // Load element e of a limb-major table (row stride `stride` words).

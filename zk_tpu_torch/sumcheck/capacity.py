@@ -33,15 +33,12 @@ sums are exact in any order); ``kernels.canon_sums`` and
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
-import numpy as np
 import torch
 
 from zk_tpu_torch.fields.field import Field
 from zk_tpu_torch import _cuda
 from zk_tpu_torch.fields import device as dev
+from zk_tpu_torch.fields.kernels import check_cuda, cuda_stream, field_params
 
 THREADS = 256  # csrc/capacity.cu THREADS
 MAX_PARTIALS = 1024  # blocks (= partial accumulators) of a sums kernel
@@ -77,18 +74,6 @@ def _partials_plain(contrib: torch.Tensor, n_terms: int = 1) -> torch.Tensor:
     return c.reshape(P, L, G, chunk).sum(-1)
 
 
-@functools.lru_cache(maxsize=None)
-def _params(field: Field) -> np.ndarray:
-    """csrc/field.cuh FieldParams as uint32 words: p, -p^-1 mod 2^32, and
-    the Montgomery forms of the sample points 0..3."""
-    nw = field.n_limbs // 2
-    words = lambda v: [(v >> (32 * w)) & 0xFFFFFFFF for w in range(nw)]  # noqa: E731
-    out = words(field.p) + [(-pow(field.p, -1, 1 << 32)) % (1 << 32)]
-    for i in range(4):
-        out += words((i * field.R) % field.p)
-    return np.array(out, dtype=np.uint32)
-
-
 def _check_stack(field: Field, stack: torch.Tensor, size: int, name: str):
     L = field.n_limbs
     if stack.dtype != torch.int32:
@@ -97,23 +82,6 @@ def _check_stack(field: Field, stack: torch.Tensor, size: int, name: str):
         raise ValueError(f"{name}: stack must be (k, {L}, cap), got {tuple(stack.shape)}")
     if size < 2 or size & (size - 1) or size > stack.shape[2]:
         raise ValueError(f"{name}: size {size} must be a power of two in [2, cap]")
-
-
-def _check_cuda(field: Field, name: str, *tensors: torch.Tensor):
-    if field.n_limbs not in (4, 16):
-        raise ValueError(f"{name}: no CUDA kernel for {field.n_limbs}-limb fields")
-    dev0 = tensors[0].device
-    if dev0.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev0}")
-    for t in tensors:
-        if t.device != dev0:
-            raise ValueError(f"{name}: tensors on different devices")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-
-
-def _stream(t: torch.Tensor):
-    return ctypes.c_void_p(_cuda.stream_ptr(t.device))
 
 
 def _check_out(stack, out, n_out: int, name: str):
@@ -164,10 +132,10 @@ def fold_multi(field: Field, stack, size: int, rs, out):
     _check_out(stack, out, n_out, "fold_multi")
     if stack.device.type == "cpu":
         return fold_multi_plain(field, stack, size, rs, out)
-    _check_cuda(field, "fold_multi", stack, rs, out)
+    check_cuda(field, "fold_multi", stack, rs, out)
     err = _cuda.lib().zk_fold_multi(
         field.n_limbs, f, stack.data_ptr(), stack.shape[2], out.data_ptr(), out.shape[2],
-        n_out, rs.data_ptr(), _params(field).ctypes.data, _stream(stack),
+        n_out, rs.data_ptr(), field_params(field).ctypes.data, cuda_stream(stack),
     )
     _cuda.check(err, "fold_multi")
     _cuda.count_launch("fold_multi")
@@ -196,15 +164,15 @@ def round_sums(field: Field, degree: int, stack, size: int):
         raise ValueError(f"round_sums: degree {degree} not in 1..{MAX_DEGREE}")
     if stack.device.type == "cpu":
         return round_sums_plain(field, degree, stack, size)
-    _check_cuda(field, "round_sums", stack)
+    check_cuda(field, "round_sums", stack)
     if (degree, k) not in ROUND_SUMS_SHAPES:
         raise ValueError(f"round_sums: no kernel for (degree, k) = {(degree, k)}")
     G, chunk = partition(size // 2)
     partials = torch.empty((degree + 1, field.n_limbs, G), dtype=torch.int64, device=stack.device)
     err = _cuda.lib().zk_round_sums(
         field.n_limbs, degree, k, stack.data_ptr(), field.n_limbs * stack.shape[2],
-        stack.shape[2], size // 2, chunk, G, _params(field).ctypes.data,
-        partials.data_ptr(), _stream(stack),
+        stack.shape[2], size // 2, chunk, G, field_params(field).ctypes.data,
+        partials.data_ptr(), cuda_stream(stack),
     )
     _cuda.check(err, "round_sums")
     _cuda.count_launch("round_sums")
@@ -258,14 +226,14 @@ def round_sums_terms(field: Field, degree: int, term_ks, stack, size: int):
     G, chunk = partition(size // 2, len(term_ks))
     if stack.device.type == "cpu":
         return round_sums_terms_plain(field, degree, term_ks, stack, size)
-    _check_cuda(field, "round_sums_terms", stack)
+    check_cuda(field, "round_sums_terms", stack)
     if (degree, term_ks) not in ROUND_SUMS_TERMS_SHAPES:
         raise ValueError(f"round_sums_terms: no kernel for (degree, term_ks) = {(degree, term_ks)}")
     partials = torch.empty((degree + 1, field.n_limbs, G), dtype=torch.int64, device=stack.device)
     err = _cuda.lib().zk_round_sums_terms(
         field.n_limbs, degree, term_ks[0], term_ks[1], stack.data_ptr(),
         field.n_limbs * stack.shape[2], stack.shape[2], size // 2, chunk, G,
-        _params(field).ctypes.data, partials.data_ptr(), _stream(stack),
+        field_params(field).ctypes.data, partials.data_ptr(), cuda_stream(stack),
     )
     _cuda.check(err, "round_sums_terms")
     _cuda.count_launch("round_sums_terms")
@@ -305,14 +273,14 @@ def fold(field: Field, stack, size: int, r, out):
     _check_out(stack, out, half, "fold")
     if stack.device.type == "cpu":
         return fold_plain(field, stack, size, r, out)
-    _check_cuda(field, "fold", stack, r, out)
+    check_cuda(field, "fold", stack, r, out)
     K = stack.shape[0]
     if K > FOLD_MAX_FACTORS:
         raise ValueError(f"fold: no kernel for {K} factors (at most {FOLD_MAX_FACTORS})")
     err = _cuda.lib().zk_fold(
         field.n_limbs, K, stack.data_ptr(), field.n_limbs * stack.shape[2], stack.shape[2],
         out.data_ptr(), field.n_limbs * out.shape[2], out.shape[2], half, r.data_ptr(),
-        _params(field).ctypes.data, _stream(stack),
+        field_params(field).ctypes.data, cuda_stream(stack),
     )
     _cuda.check(err, "fold")
     _cuda.count_launch("fold")
@@ -351,13 +319,13 @@ def fold_halfsums(field: Field, stack, size: int, r, out):
     _check_out(stack, out, half, "fold_halfsums")
     if stack.device.type == "cpu":
         return fold_halfsums_plain(field, stack, size, r, out)
-    _check_cuda(field, "fold_halfsums", stack, r, out)
+    check_cuda(field, "fold_halfsums", stack, r, out)
     G, chunk = partition(half)
     partials = torch.empty((2, field.n_limbs, G), dtype=torch.int64, device=stack.device)
     err = _cuda.lib().zk_fold_halfsums(
         field.n_limbs, stack.data_ptr(), stack.shape[2], out.data_ptr(), out.shape[2], half,
-        chunk, G, r.data_ptr(), _params(field).ctypes.data, partials.data_ptr(),
-        _stream(stack),
+        chunk, G, r.data_ptr(), field_params(field).ctypes.data, partials.data_ptr(),
+        cuda_stream(stack),
     )
     _cuda.check(err, "fold_halfsums")
     _cuda.count_launch("fold_halfsums")
