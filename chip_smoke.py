@@ -5,20 +5,27 @@ It needs one CUDA card and fails (non-zero exit, no result line) without
 one.  Phases, each an uncaught exception on failure:
 
   1. device: card name, CUDA version, ``nvidia-smi`` name and power limit;
-     build every kernel from zk_tpu_torch/csrc with nvcc (timed);
+     build every kernel from zk_tpu_torch/csrc (one nvcc per source, in
+     parallel; timed), and the registers, spills and SASS sizes of the
+     redesigned kernels (fold_multi, ntt_ladder);
   2. kernels against their plain torch versions on the card, exact
-     equality: fold_multi (f = 1..4), round_sums ((D, k) in (1,1), (2,2),
-     (3,1)), fold_halfsums on Goldilocks and BLS12-381 Fr at 2^4, 2^12,
-     2^18 and the main path's 2^24 (BLS12-381), and Keccak-f[1600] on 64
-     random states plus the Keccak-256("") known answer;
+     equality: fold_multi (f = 1..4, fresh and in place) on Goldilocks,
+     BLS12-381 Fr and BLS12-377 Fr at 2^4, 2^12, 2^18 and 2^24;
+     round_sums ((D, k) in (1,1), (2,2), (3,1)) and fold_halfsums on
+     Goldilocks and BLS12-381 Fr at 2^4, 2^12, 2^18 and the main path's
+     2^24 (BLS12-381); Keccak-f[1600] on 64 random states plus the
+     Keccak-256("") known answer;
   2b. the GKR kernels against their plain versions, exact: fold (K = 1..5)
      and round_sums_terms (term sizes (2,1), (2,2), (2,3)) on Goldilocks and
      BLS12-381 Fr at 2^4, 2^12, 2^18, and at GKR's 2^19 (BLS12-381);
   2c. the NTT path's kernels against their plain versions, exact:
-     ntt_ladder forward and inverse on Goldilocks, BLS12-381 Fr and
-     BLS12-377 Fr at lengths 2, 16 and 1024 with 1, 3 and 1024 rows;
-     mont_mul and lerp at 2^4, 2^12 and 2^20, lerp at 2^23 (BLS12-381);
-     each timed at its main-path shape;
+     ntt_ladder (one level of the radix recursion along axis -2) forward
+     and inverse on Goldilocks, BLS12-381 Fr and BLS12-377 Fr at lengths
+     2, 16 and 1024: the last level on 1, 3, 37 (a ragged tile) and 1024
+     columns, an upper level (fused twiddles, transposed store) at
+     batches 1, 3 and 1024 of 4 columns each; mont_mul and lerp at 2^4,
+     2^12 and 2^20, lerp at 2^23 (BLS12-381); each timed at its main-path
+     shape (ntt_ladder: the upper level of the 2^20 transform);
   2d. the HBM roofline reading: chained lerp folds of 2^23 BLS12-381
      pairs through fields.kernels.lerp (benches/roofline.py's shape), the
      share of 3.35 TB/s they reach, lerp's launches;
@@ -44,12 +51,14 @@ one.  Phases, each an uncaught exception on failure:
      kernel route's forward output equal to the plain route's; the
      UnivariatePolynomial product of two degree-2^15 - 1 BLS12-381
      polynomials (the NTT route) checked at a random point, and one of 300
-     coefficients equal to the schoolbook product; ntt_ladder and mont_mul
-     launched.
+     coefficients equal to the schoolbook product; a warm 2^20 transform
+     launches exactly two ntt_ladder passes and nothing else counted;
+     ntt_ladder and mont_mul launched.
 
 Before the last line it prints the per-kernel JSON line
 ``{"kernels": [...]}`` (time, plain time and bound at the timed shape, the
-launches on each kernel's path); the last line is the result object.
+launches on each kernel's path; for ntt_ladder also the last level's time
+and bound); the last line is the result object.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ import importlib
 import json
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -176,6 +186,55 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
 # --------------------------------------------------------------------------
 
 
+def _kernel_name(mangled: str) -> str:
+    """``_ZN<len><ns>...<len>name_kernelILi8ELi4EE...`` -> ``name_kernel<8,4>``
+    (the nested names of an Itanium-mangled kernel, template ints kept)."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    pos, name = 3, mangled
+    while pos < len(mangled) and mangled[pos].isdigit():
+        m = re.match(r"\d+", mangled[pos:])
+        n = int(m.group(0))
+        pos += len(m.group(0))
+        name = mangled[pos : pos + n]
+        pos += n
+    args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
+    return f"{name}<{','.join(re.findall(r'Li(\d+)E', args.group(1)))}>" if args else name
+
+
+def kernel_resources() -> dict[str, tuple[int, int, int]]:
+    """{kernel instance: (registers, spill store bytes, spill load bytes)}
+    from the ptxas report kept beside the built library."""
+    path = _cuda.build().with_suffix(".ptxas.txt")
+    res, name, spills = {}, None, (0, 0)
+    for line in path.read_text().splitlines() if path.exists() else ():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = _kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            res[name] = (int(m.group(1)), *spills)
+            spills = (0, 0)
+    return res
+
+
+def sass_counts() -> dict[str, int]:
+    """{kernel instance: SASS instructions} of the built library, from
+    ``cuobjdump -sass`` beside nvcc ({} where cuobjdump is missing)."""
+    nvcc = _cuda.find_nvcc()
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump") if nvcc else None
+    if tool is None or not os.path.isfile(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(_cuda.build())], capture_output=True, text=True).stdout
+    return {
+        _kernel_name(fn.split()[0]): len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", fn))
+        for fn in re.split(r"\n\s*Function : ", sass)[1:]
+    }
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
@@ -189,6 +248,10 @@ def phase_device() -> str:
     t0 = time.perf_counter()
     _cuda.lib()
     log(f"kernel build + load: {time.perf_counter() - t0:.2f} s (nvcc {_cuda.last_build_seconds} s)")
+    res, sass = kernel_resources(), sass_counts()
+    log("redesigned kernels (ptxas registers, spill store / load bytes; SASS instructions): " + "; ".join(
+        f"{k} {v[0]} regs, spills {v[1]}/{v[2]}, {sass.get(k, 'n/a')} instructions" for k, v in sorted(res.items())
+        if k.startswith(("fold_multi_kernel", "ntt_ladder_kernel"))))
     if not transcript.HAS_NATIVE:
         raise RuntimeError("no C compiler for the host Keccak: the GKR proofs' 16 MiB absorbs need it")
     log("host transcript backend: native C")
@@ -316,10 +379,15 @@ def phase_kernels() -> dict:
     timings and the largest error per kernel."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     errs = {k: 0 for k in KERNEL_INFO}
-    for field in (GOLDILOCKS, FR):
-        for size in SIZES:
+    for field in (GOLDILOCKS, FR, BLS12_377_FR):
+        for size in SIZES + (1 << MAIN_N,):
             for f in range(1, 5):
                 errs["fold_multi"] = max(errs["fold_multi"], check_fold_multi(field, size, f, gen)["err"])
+            torch.cuda.empty_cache()
+        log(f"fold_multi == plain version (f = 1..4, fresh and in place): {field.name} at sizes "
+            f"{SIZES + (1 << MAIN_N,)}")
+    for field in (GOLDILOCKS, FR):
+        for size in SIZES:
             for degree, k in ((1, 1), (2, 2), (3, 1)):
                 errs["round_sums"] = max(errs["round_sums"], check_round_sums(field, size, degree, k, gen)["err"])
             errs["fold_halfsums"] = max(errs["fold_halfsums"], check_fold_halfsums(field, size, gen)["err"])
@@ -375,26 +443,29 @@ def phase_gkr_kernels() -> dict:
     return timed
 
 
-def rand_rows(field, rows, n, gen) -> torch.Tensor:
-    """Random valid Montgomery limbs of shape (L, rows, n) on the card."""
-    return rand_limbs(field, (field.n_limbs, rows * n), gen).reshape(field.n_limbs, rows, n)
-
-
-def check_ntt_ladder(field, n_t, rows, inverse, gen, timed=False):
-    x = rand_rows(field, rows, n_t, gen)
-    want = NTT.ntt_ladder_plain(field, x, inverse)
-    got = NTT.ntt_ladder(field, x, inverse)
+def check_ntt_ladder(field, n_t, cols, batch, inverse, gen, timed=False):
+    """One ntt_ladder pass on (L, n_t, cols) limbs: the last level (batch
+    None) or an upper level of cols // batch twiddle rows."""
+    x = rand_limbs(field, (field.n_limbs, n_t * cols), gen).reshape(field.n_limbs, n_t, cols)
+    want = NTT.ntt_ladder_plain(field, x, inverse, batch=batch)
+    got = NTT.ntt_ladder(field, x, inverse, batch=batch)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        raise AssertionError(f"ntt_ladder {field.name} n_t={n_t} rows={rows} inverse={inverse}: kernel != plain")
+        raise AssertionError(f"ntt_ladder {field.name} n_t={n_t} cols={cols} batch={batch} inverse={inverse}: "
+                             "kernel != plain")
     res = {"err": max_err(got, want)}
     if timed:
-        res["ms"] = cuda_ms(lambda: NTT.ntt_ladder(field, x, inverse))
-        res["plain_ms"] = cuda_ms(lambda: NTT.ntt_ladder_plain(field, x, inverse), 2)
-        # rows in and out plus the packed twiddles; n_t/2 products per stage
-        # and row, and the n^-1 scale of every element when inverse
-        products = rows * (n_t // 2) * (n_t.bit_length() - 1) + (rows * n_t if inverse else 0)
-        res["bound"] = bound((2 * rows + 1) * n_t * elem_bytes(field), products, field=field)
+        res["ms"] = cuda_ms(lambda: NTT.ntt_ladder(field, x, inverse, batch=batch))
+        res["plain_ms"] = cuda_ms(lambda: NTT.ntt_ladder_plain(field, x, inverse, batch=batch), 2)
+        # columns in and out, the packed ladder twiddles, and at an upper
+        # level the element-major twiddles (NW words an element); products:
+        # every butterfly whose twiddle is not 1 (n_t - 1 of a column's
+        # n_t/2 log2 n_t have twiddle 1), and one per element for the level
+        # twiddle or the inverse's n_t^-1
+        nbytes = (2 * cols + 1) * n_t * elem_bytes(field) + (n_t * cols * 2 * field.n_limbs if batch else 0)
+        products = cols * ((n_t // 2) * (n_t.bit_length() - 1) - (n_t - 1))
+        products += cols * n_t if batch or inverse else 0
+        res["bound"] = bound(nbytes, products, field=field)
     return res
 
 
@@ -430,24 +501,29 @@ def phase_ntt_kernels() -> dict:
     and lerp at the roofline's 2^23 (all BLS12-381 in the JSON line)."""
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     errs = {"ntt_ladder": 0, "mont_mul": 0, "lerp": 0}
+    shapes = [(cols, None) for cols in (1, 3, 37, 1024)] + [(4 * b, b) for b in (1, 3, 1024)]
     for field in (GOLDILOCKS, FR, BLS12_377_FR):
         for n_t in (2, 16, NTT.LADDER_MAX):
-            for rows in (1, 3, 1024):
+            for cols, batch in shapes:
                 for inverse in (False, True):
-                    errs["ntt_ladder"] = max(errs["ntt_ladder"], check_ntt_ladder(field, n_t, rows, inverse, gen)["err"])
+                    res = check_ntt_ladder(field, n_t, cols, batch, inverse, gen)
+                    errs["ntt_ladder"] = max(errs["ntt_ladder"], res["err"])
         for log_n in (4, 12, NTT_LOG):
             for name, res in check_elementwise(field, 1 << log_n, gen).items():
                 errs[name] = max(errs[name], res["err"])
-        log(f"NTT kernels == plain versions: {field.name} (ntt_ladder n_t 2/16/{NTT.LADDER_MAX} x rows 1/3/1024, "
-            f"fwd+inv; mont_mul, lerp at 2^4/2^12/2^{NTT_LOG})")
-    rows = (1 << NTT_LOG) // NTT.LADDER_MAX
+        log(f"NTT kernels == plain versions: {field.name} (ntt_ladder n_t 2/16/{NTT.LADDER_MAX} x last level on "
+            f"1/3/37/1024 columns, upper level at batches 1/3/1024, fwd+inv; mont_mul, lerp at 2^4/2^12/2^{NTT_LOG})")
+    cols = (1 << NTT_LOG) // NTT.LADDER_MAX
     timed = {}
     for field in (GOLDILOCKS, FR):
-        ladder = check_ntt_ladder(field, NTT.LADDER_MAX, rows, False, gen, timed=True)
+        last = check_ntt_ladder(field, NTT.LADDER_MAX, cols, None, False, gen, timed=True)
+        ladder = check_ntt_ladder(field, NTT.LADDER_MAX, cols, 1, False, gen, timed=True)
         elem = check_elementwise(field, 1 << NTT_LOG, gen, timed=True)
-        for name, res in (("ntt_ladder", ladder), ("mont_mul", elem["mont_mul"])):
+        for name, res in (("ntt_ladder upper level", ladder), ("ntt_ladder last level", last),
+                          ("mont_mul", elem["mont_mul"])):
             log(f"  {name} {field.name} 2^{NTT_LOG} elements: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
                 f"bound {res['bound'][0]:.4f} ms ({res['bound'][1]}), max_abs_err {res['err']}")
+        ladder["last_level"] = {"last_level_ms": last["ms"], "last_level_bound_ms": last["bound"][0]}
         timed["ntt_ladder"], timed["mont_mul"] = ladder, elem["mont_mul"]
     timed["lerp"] = check_elementwise(FR, 1 << LERP_LOG, gen, timed=True, names=("lerp",))["lerp"]
     res = timed["lerp"]
@@ -617,6 +693,11 @@ def ntt_roundtrip(field, data, name: str, reps: int) -> None:
     cold = timed_runs(roundtrip, 1)[0]
     warm = timed_runs(roundtrip, reps)
     log(f"ntt+intt roundtrip 2^{n.bit_length() - 1} {name}: cold {cold:.6f} s; warm {spread(warm)}")
+    before = _cuda.launches()
+    NTT.ntt_device(field, data)
+    one = {k: v - before[k] for k, v in _cuda.launches().items() if v != before[k]}
+    if one != {"ntt_ladder": 2}:
+        raise AssertionError(f"{name}: a warm 2^{n.bit_length() - 1} transform launched {one}, not two ntt_ladder passes")
     fwd = NTT.ntt_device(field, data)
     if not torch.equal(NTT.intt_device(field, fwd), data):
         raise AssertionError(f"{name}: intt(ntt(x)) != x at 2^{n.bit_length() - 1}")
@@ -629,7 +710,8 @@ def ntt_roundtrip(field, data, name: str, reps: int) -> None:
         plain = NTT.ntt_device(field, data)
     if not torch.equal(plain, fwd):
         raise AssertionError(f"{name}: kernel route != plain route at 2^{n.bit_length() - 1}")
-    log(f"  {name}: intt(ntt(x)) == x; outputs at k = {ks} == DFT definition; kernel route == plain route")
+    log(f"  {name}: a warm transform is two ntt_ladder launches; intt(ntt(x)) == x; outputs at k = {ks} == "
+        "DFT definition; kernel route == plain route")
 
 
 def phase_ntt_main(reps: int = 5) -> dict:
@@ -794,6 +876,7 @@ def main() -> int:
             # no single PyTorch call folds, sums or multiplies Montgomery limbs,
             # and torch.fft is complex floating point, not a finite-field DFT
             "library_ms": None,
+            **res.get("last_level", {}),  # ntt_ladder: the 2^20 transform's other level
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,7 +2,7 @@
 
 Run from the repository root on a card:
 
-    python3 scripts/profile_ntt.py [--log 20] [--reps 5]
+    python3 scripts/profile_ntt.py [--log 20] [--reps 5] [--mle]
 
 For chip_smoke.py's phase 6 inputs (bench.py bench_ntt's Goldilocks
 values (i * 0x12345 + 7) mod p, and random BLS12-381 Fr limbs from a
@@ -12,8 +12,13 @@ seeded generator), it prints, per field:
     max of --reps);
   * for one warm roundtrip under torch.profiler: the device ops launched,
     the device busy time (the sum of kernel times) against the wall time,
-    and the kernels that took the most device time (ntt_ladder, mont_mul
-    and the transposes' copies).
+    and the kernels that took the most device time (the ntt_ladder passes,
+    and anything else the transform launches).
+
+With ``--mle`` it does the same for chip_smoke.py's warm 2^24 BLS12-381
+``MLE.evaluate`` (the fold_multi chain), and splits one evaluation's host
+time into encoding the point, enqueueing the folds, waiting for the card
+and decoding the value.
 
 The card's name and power limit come first, as nvidia-smi reports them.
 """
@@ -26,23 +31,52 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import rand_limbs  # noqa: E402
+from chip_smoke import main_table, rand_limbs  # noqa: E402
 from scripts.profile_gkr import profiled, synced  # noqa: E402
 from zk_tpu_torch.fields import BLS12_381_FR, GOLDILOCKS  # noqa: E402
 from zk_tpu_torch.fields import device as dev  # noqa: E402
+from zk_tpu_torch.poly.mle import fold_var0  # noqa: E402
 
 NTT = importlib.import_module("zk_tpu_torch.ntt")
+
+
+def profile_mle(reps: int, n: int = 24) -> None:
+    """chip_smoke.py's 2^24 BLS12-381 evaluation: warm walls, a profile,
+    and one evaluation's host time by step."""
+    poly = main_table(n)
+    field = poly.field
+    point = [(0x1234567 + i * 0xDEADBEEF) % field.p for i in range(n)]
+    poly.evaluate(point)
+    runs = [synced(lambda: poly.evaluate(point))[1] for _ in range(reps)]
+    print(f"MLE.evaluate 2^{n}: median {statistics.median(runs):.6f} s, min {min(runs):.6f} s, "
+          f"max {max(runs):.6f} s over {reps}", flush=True)
+    profiled(lambda: poly.evaluate(point), f"profile, MLE.evaluate 2^{n}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs = dev.encode_ints(field, point, device=poly.data.device)
+    t1 = time.perf_counter()
+    out = fold_var0(field, poly.data, rs)
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    dev.decode_ints(field, out)
+    t4 = time.perf_counter()
+    print(f"one MLE.evaluate 2^{n} by step: encode + upload {1e3 * (t1 - t0):.3f} ms, enqueue the folds "
+          f"{1e3 * (t2 - t1):.3f} ms, wait for the card {1e3 * (t3 - t2):.3f} ms, decode {1e3 * (t4 - t3):.3f} ms",
+          flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log", type=int, default=20, help="log2 of the transform length")
     ap.add_argument("--reps", type=int, default=5, help="warm roundtrips per field")
+    ap.add_argument("--mle", action="store_true", help="also profile the warm 2^24 MLE.evaluate")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this profile runs only on a GPU")
@@ -64,6 +98,8 @@ def main() -> int:
         print(f"ntt+intt 2^{args.log} {name}: median {statistics.median(runs):.6f} s, "
               f"min {min(runs):.6f} s, max {max(runs):.6f} s over {args.reps}", flush=True)
         profiled(roundtrip, f"profile, ntt+intt 2^{args.log} {name}")
+    if args.mle:
+        profile_mle(args.reps)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     print(f"after the runs: {smi}", flush=True)

@@ -24,7 +24,7 @@ from zk_tpu.fields import device as jdev
 from zk_tpu.poly.mle import _fold_kernel
 from zk_tpu.sumcheck.kernels import _fold_stack_inner, _sums_jnp_stack
 from zk_tpu_torch import interop
-from zk_tpu_torch.fields import BLS12_381_FR, GOLDILOCKS
+from zk_tpu_torch.fields import BLS12_377_FR, BLS12_381_FR, GOLDILOCKS
 from zk_tpu_torch.fields import device as tdev
 from zk_tpu_torch.fields.kernels import field_params
 from zk_tpu_torch.poly.mle import MLE
@@ -239,3 +239,23 @@ def test_cuda_kernels_match_plain(cuda, field):
     out, acc = C.fold_halfsums(field, stack, 1 << 12, rs[:, :1].contiguous(), out=stack.new_empty((1, L, 1 << 11)))
     want, want_acc = C.fold_halfsums_plain(field, stack, 1 << 12, rs[:, :1], stack.new_zeros((1, L, 1 << 11)))
     assert torch.equal(out, want) and torch.equal(acc, want_acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [GOLDILOCKS, BLS12_381_FR, BLS12_377_FR], ids=lambda f: f.name)
+def test_cuda_fold_multi_in_place_and_fresh_at_ragged_shapes(cuda, field):
+    """f = 1..4 MSB variables, outputs from 1 element to a partial block,
+    row strides that are not the size, a fresh buffer and in place."""
+    L = field.n_limbs
+    for size in (16, 1 << 9, 1 << 13):
+        cap = size + 40
+        stack = interop.limbs_from_numpy(_table(field, (1, L, cap), size), cuda)
+        rs = interop.limbs_from_numpy(_table(field, (L, 4), size + 1), cuda)
+        for f in range(1, 5):
+            r, n = rs[:, :f].contiguous(), size >> f
+            want = C.fold_multi_plain(field, stack, size, r, stack.new_zeros((1, L, n)))
+            fresh = C.fold_multi(field, stack, size, r, out=stack.new_zeros((1, L, n + 8)))
+            assert torch.equal(fresh[:, :, :n], want) and not fresh[:, :, n:].any()
+            inplace = stack.clone()
+            C.fold_multi(field, inplace, size, r, out=inplace)
+            assert torch.equal(inplace[:, :, :n], want) and torch.equal(inplace[:, :, n:], stack[:, :, n:])

@@ -94,12 +94,12 @@ def test_cpu_wrappers_do_not_count_launches():
     N.ntt_ladder(FR, x, True)
     FK.mont_mul(FR, a, a)
     FK.lerp(FR, a, a, r)
-    N.ntt(FR, list(range(2048)), device="cpu")  # two ladder levels and a twiddle multiply
+    N.ntt(FR, list(range(2048)), device="cpu")  # two ladder levels, the upper one with its twiddles
     assert all(v == 0 for v in _cuda.launches().values())
 
 
 @pytest.mark.parametrize("kernel", ["fold_multi", "round_sums", "fold_halfsums", "keccak", "fold", "round_sums_terms",
-                                    "ntt_ladder", "mont_mul", "lerp"])
+                                    "ntt_ladder", "mont_mul", "lerp", "decode"])
 def test_no_fallback_on_other_devices(kernel):
     """A tensor that is neither on the CPU nor on a CUDA card raises; it
     never takes the plain version."""
@@ -115,9 +115,10 @@ def test_no_fallback_on_other_devices(kernel):
         "keccak": lambda: tdev.keccak_f1600_device(z, z),
         "fold": lambda: C.fold(FR, terms, 8, r, out=terms),
         "round_sums_terms": lambda: C.round_sums_terms(FR, 2, (2, 1), terms, 8),
-        "ntt_ladder": lambda: N.ntt_ladder(FR, stack.reshape(L, 1, 8), False),
+        "ntt_ladder": lambda: N.ntt_ladder(FR, stack.reshape(L, 8, 1), False),
         "mont_mul": lambda: FK.mont_mul(FR, stack[0], stack[0]),
         "lerp": lambda: FK.lerp(FR, stack[0], stack[0], r),
+        "decode": lambda: dev.decode_ints(FR, stack[0]),  # un-scales through mont_mul
     }
     with pytest.raises(ValueError, match="unsupported device"):
         calls[kernel]()
@@ -172,10 +173,11 @@ def _rand_limbs(field, shape, gen, device):
 @pytest.mark.parametrize("field", [GOLDILOCKS, FR], ids=lambda f: f.name)
 def test_cuda_ntt_ladder_matches_plain(cuda, field):
     gen = torch.Generator().manual_seed(3)
-    for n_t, rows in ((2, 3), (16, 1), (N.LADDER_MAX, 5)):
-        x = _rand_limbs(field, (field.n_limbs, rows, n_t), gen, cuda)
+    for n_t, cols in ((2, 3), (16, 1), (N.LADDER_MAX, 5)):
+        x = _rand_limbs(field, (field.n_limbs, n_t, cols), gen, cuda)
         for inverse in (False, True):
             assert torch.equal(N.ntt_ladder(field, x, inverse), N.ntt_ladder_plain(field, x, inverse))
+            assert torch.equal(N.ntt_ladder(field, x, inverse, batch=cols), N.ntt_ladder_plain(field, x, inverse, batch=cols))
 
 
 @pytest.mark.cuda
@@ -197,3 +199,5 @@ def test_cuda_refuses_f17_naming_it(cuda):
         FK.mont_mul(F17, x, x)
     with pytest.raises(ValueError, match="F17"):
         N.ntt_device(F17, x)
+    with pytest.raises(ValueError, match="F17"):
+        dev.decode_ints(F17, x)

@@ -5,7 +5,8 @@ ntt / intt          vs zk_tpu.ntt.ntt / intt (Goldilocks, one JAX
                     compile per length) and zk_tpu.ntt.host_dft, JAX's own
                     exact-int oracle (BLS12-381, BLS12-377, F17: a JAX
                     BLS12-381 NTT compiles for 20-30 s on the CPU)
-ntt_ladder_plain    vs zk_tpu.ntt._ladder_body
+ntt_ladder          vs zk_tpu.ntt._ladder_body and a level of _rec_axis2
+                    (Goldilocks), host_dft (BLS12-381, BLS12-377)
 mont_mul / lerp     vs their definitions in host ints
 UnivariatePolynomial vs zk_tpu.poly.univariate (pure Python on both sides)
 
@@ -32,7 +33,7 @@ from zk_tpu_torch.fields import ALL_FIELDS, BLS12_377_FR, BLS12_381_FR, F17, GOL
 from zk_tpu_torch.fields import device as dev
 from zk_tpu_torch.fields import kernels as FK
 from zk_tpu_torch.poly.univariate import UnivariatePolynomial
-from torch_helpers import host_ints, lerp_int, mont_limbs
+from torch_helpers import host_ints, lerp_int, mont_limbs, once_per_session
 
 # the module: the package's own ``zk_tpu_torch.ntt`` attribute is the
 # exported function ntt
@@ -72,15 +73,114 @@ def test_ntt_and_intt_match_jax_goldilocks(n):
     assert N.intt(f, y, device=CPU) == x
 
 
+# JAX's references of the ladder tests, in one jit computed once a session
+# (XLA:CPU at its lowest backend optimization level: the integers are the
+# same and the compile takes about half the CPU): _ladder_body on (L, 8, 16)
+# forward and inverse, and a level of _rec_axis2 (ladders along axis -2,
+# twiddle multiply, transpose) at t1 = 8, t2 = 4, B = 3, inverse.  The
+# recursion as a whole is held against host_dft below.
+BODY = (8, 16)
+LEVEL = (8, 4, 3)
+
+
+def _jax_ladder_references():
+    import jax
+
+    jf = JF["Goldilocks"]
+    L = jf.n_limbs
+    t1, t2, B = LEVEL
+
+    def level(x):
+        y = jntt._ladder_axis2(jf, x, *jntt._plan(jf, t1, True))
+        tw = jntt._twiddle_table(jf, t2, t1, jntt._twiddle_base_row(jf, t1 * t2, t2, True))  # (L, t1, t2)
+        y = jdev.mont_mul(jf, y.reshape(L, t1, t2, B), tw[:, :, :, None])
+        return y.transpose(0, 2, 1, 3)  # (L, t2, t1, B)
+
+    def refs(r, x):
+        bodies = [jntt._ladder_body(jf, r, *jntt._plan(jf, BODY[1], inverse)) for inverse in (False, True)]
+        return (*bodies, level(x))
+
+    r = np.asarray(jdev.encode_ints(jf, _vals(GOLDILOCKS, BODY[0] * BODY[1], 5))).reshape(L, *BODY)
+    x = np.asarray(jdev.encode_ints(jf, _vals(GOLDILOCKS, t1 * t2 * B, 31))).reshape(L, t1, t2 * B)
+    compiled = jax.jit(refs).lower(r, x).compile(compiler_options={"xla_backend_optimization_level": 0})
+    fwd, inv, got_level = compiled(r, x)
+    return {"body": [np.asarray(fwd).tolist(), np.asarray(inv).tolist()], "level": np.asarray(got_level).tolist()}
+
+
+@pytest.fixture(scope="module")
+def jax_ladders(tmp_path_factory):
+    return once_per_session(tmp_path_factory, "jax_ntt_ladder_references", _jax_ladder_references)
+
+
 @pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
-def test_ladder_plain_matches_jax_ladder_body(inverse):
-    jf, f = JF["Goldilocks"], GOLDILOCKS
-    x = np.asarray(jdev.encode_ints(jf, _vals(f, 8 * 16, 5))).reshape(f.n_limbs, 8, 16)
-    want = np.asarray(jntt._ladder_body(jf, x, *jntt._plan(jf, 16, inverse)))
-    t = interop.limbs_from_numpy(x, CPU)
-    got = N.ntt_ladder_plain(f, t, inverse)
+def test_ladder_plain_matches_jax_ladder_body(jax_ladders, inverse):
+    """The row ladder against JAX's _ladder_body (last axis), and the
+    ladder pass (CPU wrapper = plain version) against _ladder_axis2 (axis -2)."""
+    f = GOLDILOCKS
+    x = dev.encode_ints(f, _vals(f, BODY[0] * BODY[1], 5), device=CPU).reshape(f.n_limbs, *BODY)
+    want = np.asarray(jax_ladders["body"][int(inverse)], dtype=np.uint32)
+    got = N.ladder_rows_plain(f, x, inverse)
     np.testing.assert_array_equal(interop.limbs_to_numpy(got), want)
-    assert torch.equal(N.ntt_ladder(f, t, inverse), got)  # the CPU wrapper is the plain version
+    cols = x.transpose(1, 2).contiguous()  # (L, 16, 8)
+    assert torch.equal(N.ntt_ladder(f, cols, inverse), got.transpose(1, 2))
+    assert torch.equal(N.ntt_ladder_plain(f, cols, inverse), got.transpose(1, 2))
+
+
+def test_level_pass_matches_jax_rec_axis2_level(jax_ladders):
+    """One upper level, inverse: ladders along axis -2 with the t1^-1
+    scale, the twiddles w_T^(-k1 i2), the transposed (L, t2, t1, B) store."""
+    f = GOLDILOCKS
+    t1, t2, B = LEVEL
+    x = dev.encode_ints(f, _vals(f, t1 * t2 * B, 31), device=CPU).reshape(f.n_limbs, t1, t2 * B)
+    got = N.ntt_ladder(f, x, inverse=True, batch=B)
+    assert got.shape == (f.n_limbs, t2, t1, B)
+    np.testing.assert_array_equal(interop.limbs_to_numpy(got), np.asarray(jax_ladders["level"], dtype=np.uint32))
+
+
+def _level_host(field, cols: list[list[int]], t1: int, B: int | None, inverse: bool) -> list[list[int]]:
+    """The ladder pass in host ints: the DFT of every column (JAX's
+    host_dft), then for an upper level the twiddle w_T^(k1 i2) and the
+    [i2, k1, b] order.  cols[c] is column c; returns rows of the output
+    flattened over its last axes."""
+    jf = JF[field.name]
+    ys = [jntt.host_dft(jf, c, inverse) for c in cols]
+    if B is None:
+        return [[ys[c][k1] for c in range(len(cols))] for k1 in range(t1)]
+    t2 = len(cols) // B
+    w = field.get_root_of_unity(t1 * t2)
+    w = field.inv(w) if inverse else w
+    return [[ys[i2 * B + b][k1] * pow(w, k1 * i2, field.p) % field.p for k1 in range(t1) for b in range(B)]
+            for i2 in range(t2)]
+
+
+@pytest.mark.parametrize("field", ["BLS12-381-Fr", "BLS12-377-Fr"])
+@pytest.mark.parametrize("t1,m,batch", [(8, 8, 2), (2, 6, 3), (16, 3, None)])
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+def test_level_pass_matches_host_dft(field, t1, m, batch, inverse):
+    f = TF[field]
+    vals = _vals(f, t1 * m, 7 * t1 + m)
+    x = dev.encode_ints(f, vals, device=CPU).reshape(f.n_limbs, t1, m)
+    got = N.ntt_ladder(f, x, inverse=inverse, batch=batch)
+    cols = [[vals[i1 * m + c] for i1 in range(t1)] for c in range(m)]
+    want = _level_host(f, cols, t1, batch, inverse)
+    assert [dev.decode_ints(f, row) for row in got.reshape(f.n_limbs, len(want), -1).unbind(1)] == want
+
+
+def test_kernel_twiddles_are_the_plain_table_in_words():
+    """The kernel's element-major level twiddles: the plain table's
+    w^(k1 i2) as 32-bit words, times t1^-1 for the inverse."""
+    f = BLS12_381_FR
+    T, t1 = 32, 8
+    w = f.get_root_of_unity(T)
+    for inverse, omega in ((False, w), (True, f.inv(w))):
+        words = N._kernel_twiddles(f, T, t1, omega, inverse, torch.device(CPU))
+        assert words.shape == (T, f.n_limbs // 2) and words.dtype == torch.int32
+        limbs = torch.stack([words.t() & 0xFFFF, (words.t() >> 16) & 0xFFFF], dim=1).reshape(f.n_limbs, T)
+        scale = f.inv(t1) if inverse else 1
+        want = [pow(omega, i2 * k1, f.p) * scale % f.p for i2 in range(T // t1) for k1 in range(t1)]
+        assert dev.decode_ints(f, limbs) == want
+    assert [N._tile_log_cols(g, t1, m) for g, t1, m in
+            ((f, 1024, 1 << 10), (GOLDILOCKS, 1024, 1 << 10), (f, 16, 3), (f, 1024, 1))] == [2, 3, 2, 0]
 
 
 HOST_DFT_CASES = [("BLS12-381-Fr", 2), ("BLS12-381-Fr", 16), ("BLS12-381-Fr", 64), ("BLS12-377-Fr", 8),
@@ -347,3 +447,27 @@ def test_cuda_transforms_match_plain_route(cuda, monkeypatch, field):
     assert N.intt(f, N.ntt(f, x, device=cuda), device=cuda) == x
     a = UnivariatePolynomial(f, x[:300])
     assert a._mul_ntt(a, 1024, 599, device=cuda) == a._mul_ntt(a, 1024, 599, device=CPU)
+
+
+def _rand_limbs_on(field, shape, gen, device):
+    """Random valid Montgomery limbs (< p) of shape (L, ...) on a device."""
+    t = torch.randint(0, 1 << 16, shape, generator=gen, dtype=torch.int32)
+    top = (field.p >> (16 * (field.n_limbs - 1))).bit_length() - 1
+    t[field.n_limbs - 1] &= (1 << top) - 1
+    return t.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["Goldilocks", "BLS12-381-Fr", "BLS12-377-Fr"])
+def test_cuda_ladder_pass_matches_plain_at_ragged_shapes(cuda, field):
+    """The kernel against its plain version on the card: n_t = 2 .. 1024,
+    column counts that leave a partial tile, the last level and upper
+    levels (fused twiddles, transposed store), forward and inverse."""
+    f = TF[field]
+    gen = torch.Generator().manual_seed(5)
+    for t1 in (2, 4, 16, 128, 1024):
+        for m, batch in ((1, None), (3, None), (37, None), (12, 3), (32, 1), (24, 3), (6, 6)):
+            x = _rand_limbs_on(f, (f.n_limbs, t1, m), gen, cuda)
+            for inverse in (False, True):
+                got = N.ntt_ladder(f, x, inverse, batch=batch)
+                assert torch.equal(got, N.ntt_ladder_plain(f, x, inverse, batch=batch)), (t1, m, batch, inverse)

@@ -1,9 +1,12 @@
 """Build, load and count the hand-written CUDA kernels (csrc/*.cu).
 
-Every ``.cu`` file under ``csrc/`` is compiled by ONE ``nvcc`` call for
-``sm_90a`` into a shared library with a plain C interface, loaded with
-ctypes.  The library is built at first use (never at import, so the CPU
-test suite imports this package without a CUDA toolchain) into
+Every ``.cu`` file under ``csrc/`` is compiled for ``sm_90a`` by its own
+``nvcc`` process, all started together, and the objects are linked into
+one shared library with a plain C interface, loaded with ctypes.  ptxas's
+report of each kernel's registers and spills (``-Xptxas -v``) is kept
+beside the library as ``<library>.ptxas.txt``.  The library is built at
+first use (never at import, so the CPU test suite imports this package
+without a CUDA toolchain) into
 ``zk_tpu_torch/_build/``, keyed by a hash of the sources and flags, so an
 edited source always rebuilds.  There is no fallback: a missing ``nvcc``
 or a failed build raises with the compiler's stderr.
@@ -32,9 +35,10 @@ NVCC_FLAGS = (
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas",
+    "-v",
 )
 
 KERNELS = (
@@ -87,11 +91,13 @@ def _digest() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into _build/libzk_kernels_<hash>.so (cached)."""
+    """Compile csrc/*.cu into _build/libzk_kernels_<hash>.so (cached): one
+    nvcc process per source, run in parallel, then one link."""
     global last_build_seconds
     import time
 
-    out = BUILD_DIR / f"libzk_kernels_{_digest()}.so"
+    digest = _digest()
+    out = BUILD_DIR / f"libzk_kernels_{digest}.so"
     if out.exists():
         return out
     nvcc = find_nvcc()
@@ -101,15 +107,33 @@ def build() -> Path:
             "kernels of zk_tpu_torch are built from csrc/ with nvcc for sm_90a"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{digest}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    reports, failed = [], None
+    for cmd, _, proc in jobs:
+        _, err = proc.communicate()
+        reports.append(err)
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed (rc={proc.returncode}): {' '.join(cmd)}\n{err}"
+    objs = [str(obj) for _, obj, _ in jobs]
+    try:
+        if failed is not None:
+            raise KernelBuildError(failed)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(f"nvcc link failed (rc={proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        out.with_suffix(".ptxas.txt").write_text("".join(reports))
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
     last_build_seconds = time.perf_counter() - t0
     return out
 
@@ -128,7 +152,7 @@ def lib() -> ctypes.CDLL:
         so.zk_keccak_f1600.argtypes = [P, P, P, P, I, P]
         so.zk_fold.argtypes = [I, I, P, I64, I64, P, I64, I64, I64, P, P, P]
         so.zk_round_sums_terms.argtypes = [I, I, I, I, P, I64, I64, I64, I64, I, P, P, P]
-        so.zk_ntt_ladder.argtypes = [I, P, P, I64, I, P, P, P, P]
+        so.zk_ntt_ladder.argtypes = [I, P, P, I, I64, I64, I, P, P, P, P, P]
         so.zk_mont_mul.argtypes = [I, P, P, P, I64, P, P]
         so.zk_lerp.argtypes = [I, P, P, P, P, I64, P, P]
         for name in KERNELS:

@@ -26,6 +26,17 @@
 // per-thread u32 limb accumulators, and writes its own u64 partial sums
 // (P, L, G); the transcript round adds the G partials in int64.
 //
+// fold_multi at f = 4, L = 16 does 15 lerps per output against 16
+// elements read (2^24 elements: 0.24 ms of multiply-adds, 0.34 ms of
+// bytes), so it sits where both bounds meet and issue efficiency decides.
+// Design: a depth-first walk of the tree in a runtime loop (one copy of
+// each lerp, ~1.6K SASS instructions, inside the instruction cache; the
+// fully unrolled tree was ~10.7K and stalled on instruction fetch), the
+// pending nodes and the scalars in shared memory, 62 registers and four
+// 256-thread blocks per SM, so 32 warps hide each other's load and
+// carry-chain latency.  Loads are not prefetched a leaf ahead: the
+// registers that takes cost a block per SM (measured slower).
+//
 // Accumulator bound (replaces the TPU's 2^15-grid-steps argument,
 // capacity.py:33-38): a thread adds at most ceil(chunk / blockDim) pairs,
 // each adding n_terms limbs < 2^16 (n_terms = 1 but for round_sums_terms),
@@ -58,26 +69,53 @@ namespace {
 
 constexpr int THREADS = 256;
 
+// fold_multi: one thread per output element walks the 2^F-input lerp tree
+// depth first.  Leaf k (k < 2^(F-1), in bit-reversed order j = brev(k))
+// lerps the inputs j and j + 2^(F-1) at r_0; then, for each trailing one
+// bit of k, the running node is the right operand of a lerp at the next
+// scalar against the left node pending at that level, and the result is
+// pushed at the first zero bit.  The leaves run in a runtime loop, so the
+// kernel holds one copy of the leaf lerp and one of the combine lerp.  The
+// pending nodes (at most F - 1) and the scalars live in shared memory, so
+// a thread keeps two elements in registers.
+constexpr int FOLD_MULTI_MIN_BLOCKS = 4;
+
 template <int NW, int F>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, FOLD_MULTI_MIN_BLOCKS)
 fold_multi_kernel(const uint32_t* in, int64_t in_stride, uint32_t* out, int64_t out_stride,
                   int64_t out_n, const uint32_t* rs, FieldParams<NW> fp) {
-  constexpr int M = 1 << F;
-  uint32_t r[F][NW];
-#pragma unroll
-  for (int l = 0; l < F; ++l) load_scalar<NW>(r[l], rs, F, l);
+  constexpr int H = 1 << (F - 1);  // leaves (level-0 lerps) per output
+  __shared__ uint32_t r_sh[F][NW];
+  __shared__ uint32_t stack[(F > 1 ? F - 1 : 1) * NW][THREADS];  // word w of level l: row l * NW + w
+  for (int k = threadIdx.x; k < F * NW; k += blockDim.x) {
+    const int l = k / NW, w = k % NW;
+    r_sh[l][w] = rs[(2 * w) * F + l] | (rs[(2 * w + 1) * F + l] << 16);
+  }
+  __syncthreads();
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < out_n;
        e += (int64_t)gridDim.x * blockDim.x) {
-    uint32_t x[M][NW];
+    uint32_t a[NW], b[NW];
+    // leaf 0 reads in[e] first: the in-place rule (the only reader of
+    // in[e] writes out[e], after its last read)
+#pragma unroll 1
+    for (int k = 0; k < H; ++k) {
+      const int64_t j = F > 1 ? (int64_t)(__brev((unsigned)k) >> (33 - (F > 1 ? F : 2))) : 0;
+      load_elem<NW>(a, in, in_stride, e + j * out_n);
+      load_elem<NW>(b, in, in_stride, e + (j + H) * out_n);
+      lerp<NW>(a, a, b, r_sh[0], fp);
+      const int t = __ffs(~k) - 1;  // trailing one bits of k
+#pragma unroll 1
+      for (int l = 1; l <= t; ++l) {
 #pragma unroll
-    for (int j = 0; j < M; ++j) load_elem<NW>(x[j], in, in_stride, e + j * out_n);
-    // level l pairs j with j + 2^(F-1-l) at r_l: consecutive MSB folds
+        for (int w = 0; w < NW; ++w) b[w] = stack[(l - 1) * NW + w][threadIdx.x];
+        lerp<NW>(a, b, a, r_sh[l], fp);
+      }
+      if (t < F - 1) {
 #pragma unroll
-    for (int l = 0, m = M; l < F; ++l, m >>= 1) {
-#pragma unroll
-      for (int j = 0; j < m / 2; ++j) lerp<NW>(x[j], x[j], x[j + m / 2], r[l], fp);
+        for (int w = 0; w < NW; ++w) stack[t * NW + w][threadIdx.x] = a[w];
+      }
     }
-    store_elem<NW>(out, out_stride, e, x[0]);
+    store_elem<NW>(out, out_stride, e, a);
   }
 }
 

@@ -93,11 +93,17 @@ def encode_ints(field: Field, values, *, device, mont: bool = True) -> torch.Ten
 
 
 def _canonical_host(field: Field, t: torch.Tensor, mont: bool) -> np.ndarray:
-    """(L, N) limbs -> host (N, L) uint16 canonical limbs (Montgomery
-    un-scaling runs as one mont_mul on the tensor's own device)."""
-    t = t.reshape(field.n_limbs, -1)
+    """(L, N) limbs -> host (N, L) uint16 canonical limbs.  Montgomery
+    un-scaling is one product by the integer 1 through the mont_mul kernel
+    wrapper: one launch on a card (the limb tier takes a few hundred, which
+    dominated a warm 2^24 MLE.evaluate), the plain version on the CPU.
+    Limbs may come in any integer dtype (a prover's host readback is int64)."""
+    from zk_tpu_torch.fields import kernels  # the kernel layer imports this module
+
+    t = t.reshape(field.n_limbs, -1).to(torch.int32).contiguous()
     if mont:
-        t = from_mont(field, t)
+        one = cached_const(field, 1, False, t.device).expand(t.shape).contiguous()
+        t = kernels.mont_mul(field, t, one)
     return np.ascontiguousarray(t.cpu().numpy().astype(np.uint16).T)
 
 
