@@ -7,17 +7,22 @@ one.  Phases, each an uncaught exception on failure:
   1. device: card name, CUDA version, ``nvidia-smi`` name and power limit;
      build every kernel from zk_tpu_torch/csrc (one nvcc per source, in
      parallel; timed), and the registers, spills and SASS sizes of the
-     redesigned kernels (fold_multi, ntt_ladder);
+     redesigned kernels (fold_multi, ntt_ladder, round_sums_terms,
+     transcript_round);
   2. kernels against their plain torch versions on the card, exact
      equality: fold_multi (f = 1..4, fresh and in place) on Goldilocks,
      BLS12-381 Fr and BLS12-377 Fr at 2^4, 2^12, 2^18 and 2^24;
      round_sums ((D, k) in (1,1), (2,2), (3,1)) and fold_halfsums on
      Goldilocks and BLS12-381 Fr at 2^4, 2^12, 2^18 and the main path's
      2^24 (BLS12-381); Keccak-f[1600] on 64 random states plus the
-     Keccak-256("") known answer;
+     Keccak-256("") known answer; transcript_round (the sumcheck prover's
+     whole Fiat-Shamir round) on Goldilocks, BLS12-381 Fr and BLS12-377 Fr
+     at D = 1, 2, 3, pos = 0, 32, 100, 135 and G = 1, 7, 1024 partials,
+     every output tensor equal;
   2b. the GKR kernels against their plain versions, exact: fold (K = 1..5)
-     and round_sums_terms (term sizes (2,1), (2,2), (2,3)) on Goldilocks and
-     BLS12-381 Fr at 2^4, 2^12, 2^18, and at GKR's 2^19 (BLS12-381);
+     on Goldilocks and BLS12-381 Fr at 2^4, 2^12, 2^18, and at GKR's 2^19
+     (BLS12-381); round_sums_terms (term sizes (2,1), (2,2), (2,3)) at
+     every power of two from 2^4 to 2^19 in both fields;
   2c. the NTT path's kernels against their plain versions, exact:
      ntt_ladder (one level of the radix recursion along axis -2) forward
      and inverse on Goldilocks, BLS12-381 Fr and BLS12-377 Fr at lengths
@@ -30,7 +35,8 @@ one.  Phases, each an uncaught exception on failure:
      pairs through fields.kernels.lerp (benches/roofline.py's shape), the
      share of 3.35 TB/s they reach, lerp's launches;
   3. tier differential at n = 14 (BLS12-381): the device-transcript prove
-     equals the synced-kernel prove and the exact host-int prove;
+     equals the synced-kernel prove and the exact host-int prove; a device
+     round is one transcript_round launch and no keccak_f1600;
   3b. GKR tier differential (BLS12-381): on a seeded random circuit of
      depth 3 and width 256 the device-resident chain, the per-phase synced
      prover and the dense O(4^k) prover give the same proof; the
@@ -38,12 +44,13 @@ one.  Phases, each an uncaught exception on failure:
   4. sumcheck main path at n = 24 (BLS12-381 Fr): MLE.evaluate,
      prove_partial (cold and warm), verify_partial and the oracle check,
      the host-transcript prove equal to the device-transcript prove, its
-     four kernels launched; then prove + verify in full at n = 20;
+     four kernels launched, one transcript_round a round and no
+     keccak_f1600 in a warm prove; then prove + verify in full at n = 20;
   5. GKR main path: bench.py's 2 x 2^19-gate BLS12-381 circuit on inputs
      made on the card, a cold and 5 warm proves, the synced prove
      identical, verify (cold and warm) accepts, a flipped w_b is rejected,
-     its four kernels (fold, round_sums_terms, fold_multi, keccak_f1600)
-     launched;
+     its five kernels (fold, round_sums_terms, fold_multi, transcript_round,
+     keccak_f1600) launched, one transcript_round a phase round;
   6. NTT main path: bench.py bench_ntt's Goldilocks 2^20 roundtrip on its
      inputs (i * 0x12345 + 7) mod p, cold and 5 warm, and the same at 2^20
      in BLS12-381 Fr on random limbs: intt(ntt(x)) == x, forward outputs at
@@ -58,7 +65,11 @@ one.  Phases, each an uncaught exception on failure:
 Before the last line it prints the per-kernel JSON line
 ``{"kernels": [...]}`` (time, plain time and bound at the timed shape, the
 launches on each kernel's path; for ntt_ladder also the last level's time
-and bound); the last line is the result object.
+and bound); the last line is the result object.  Kernel times (``ms``) are
+CUDA-event means of back-to-back calls.  For the two launches shorter than
+their host wrappers (transcript_round, keccak_f1600) that is the wrapper's
+rate, and the profiler's device time of the kernel alone stands beside it
+as ``device_ms``.
 """
 
 from __future__ import annotations
@@ -87,6 +98,7 @@ from zk_tpu_torch.gkr.chain import prove_chain
 from zk_tpu_torch.gkr.circuit import Circuit, Gate
 from zk_tpu_torch.sumcheck import SumcheckError
 from zk_tpu_torch.sumcheck import capacity as C
+from zk_tpu_torch.sumcheck import kernels as K
 from zk_tpu_torch.sumcheck import proof_to_bytes
 from zk_tpu_torch.transcript import device as tdev
 from zk_tpu_torch.utils import mle_eval_mults, sumcheck_prover_mults
@@ -113,9 +125,13 @@ KERNEL_INFO = {
     "ntt_ladder": ("zk_tpu_torch/csrc/ntt.cu", "zk_tpu/ntt/__init__.py:215"),
     "mont_mul": ("zk_tpu_torch/csrc/elementwise.cu", "zk_tpu/fields/pallas_kernels.py:68"),
     "lerp": ("zk_tpu_torch/csrc/elementwise.cu", "zk_tpu/fields/pallas_kernels.py:87"),
+    # the round JAX jits around _rounds_kernel_pallas (capacity.py:379, 388, 422)
+    "transcript_round": ("zk_tpu_torch/csrc/transcript.cu", "zk_tpu/transcript/device.py:108"),
 }
-SUMCHECK_KERNELS = ("fold_multi", "round_sums", "fold_halfsums", "keccak_f1600")
-GKR_KERNELS = ("fold", "round_sums_terms", "fold_multi", "keccak_f1600")
+# the sumcheck rounds' Fiat-Shamir steps are transcript_round launches and
+# never keccak_f1600; GKR's claim binds and line steps still permute
+SUMCHECK_KERNELS = ("fold_multi", "round_sums", "fold_halfsums", "transcript_round")
+GKR_KERNELS = ("fold", "round_sums_terms", "fold_multi", "transcript_round", "keccak_f1600")
 NTT_KERNELS = ("ntt_ladder", "mont_mul")
 ROOFLINE_KERNELS = ("lerp",)
 
@@ -177,6 +193,27 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, kernel: str, reps: int = 50) -> float:
+    """Mean device time of the CUDA kernel whose name holds ``kernel`` over
+    the calls of fn, from torch.profiler's trace of reps + 1 calls.  For a
+    launch shorter than its host wrapper, where CUDA events around
+    back-to-back calls time the wrapper instead (the first launch of a
+    window may be missing from the trace, so the mean is over those seen)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps + 1):
+            fn()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in seen)
+    if count < reps:
+        raise AssertionError(f"the profiler saw {count} launches of {kernel} in {reps + 1} calls")
+    return sum(e.self_device_time_total for e in seen) / 1e3 / count
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max().item())
 
@@ -202,12 +239,15 @@ def _kernel_name(mangled: str) -> str:
     return f"{name}<{','.join(re.findall(r'Li(\d+)E', args.group(1)))}>" if args else name
 
 
-def kernel_resources() -> dict[str, tuple[int, int, int]]:
+def kernel_resources(report: str | None = None) -> dict[str, tuple[int, int, int]]:
     """{kernel instance: (registers, spill store bytes, spill load bytes)}
-    from the ptxas report kept beside the built library."""
-    path = _cuda.build().with_suffix(".ptxas.txt")
+    from a ptxas report (``-Xptxas -v``), by default the one kept beside
+    the built library."""
+    if report is None:
+        path = _cuda.build().with_suffix(".ptxas.txt")
+        report = path.read_text() if path.exists() else ""
     res, name, spills = {}, None, (0, 0)
-    for line in path.read_text().splitlines() if path.exists() else ():
+    for line in report.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if m:
             name = _kernel_name(m.group(1))
@@ -221,14 +261,16 @@ def kernel_resources() -> dict[str, tuple[int, int, int]]:
     return res
 
 
-def sass_counts() -> dict[str, int]:
-    """{kernel instance: SASS instructions} of the built library, from
-    ``cuobjdump -sass`` beside nvcc ({} where cuobjdump is missing)."""
+def sass_counts(library=None) -> dict[str, int]:
+    """{kernel instance: SASS instructions} of a shared library (by default
+    the built one), from ``cuobjdump -sass`` beside nvcc ({} where
+    cuobjdump is missing)."""
     nvcc = _cuda.find_nvcc()
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump") if nvcc else None
     if tool is None or not os.path.isfile(tool):
         return {}
-    sass = subprocess.run([tool, "-sass", str(_cuda.build())], capture_output=True, text=True).stdout
+    library = _cuda.build() if library is None else library
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True).stdout
     return {
         _kernel_name(fn.split()[0]): len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", fn))
         for fn in re.split(r"\n\s*Function : ", sass)[1:]
@@ -251,7 +293,8 @@ def phase_device() -> str:
     res, sass = kernel_resources(), sass_counts()
     log("redesigned kernels (ptxas registers, spill store / load bytes; SASS instructions): " + "; ".join(
         f"{k} {v[0]} regs, spills {v[1]}/{v[2]}, {sass.get(k, 'n/a')} instructions" for k, v in sorted(res.items())
-        if k.startswith(("fold_multi_kernel", "ntt_ladder_kernel"))))
+        if k.startswith(("fold_multi_kernel", "ntt_ladder_kernel", "round_sums_terms_kernel",
+                         "transcript_round_kernel"))))
     if not transcript.HAS_NATIVE:
         raise RuntimeError("no C compiler for the host Keccak: the GKR proofs' 16 MiB absorbs need it")
     log("host transcript backend: native C")
@@ -345,8 +388,9 @@ def check_round_sums_terms(field, size, term_ks, gen, timed=False):
     if timed:
         res["ms"] = cuda_ms(lambda: C.round_sums_terms(field, 2, term_ks, stack, size))
         res["plain_ms"] = cuda_ms(lambda: C.round_sums_terms_plain(field, 2, term_ks, stack, size), 2)
-        # per pair and term: (D - 1) k lerps at the points >= 2, (k - 1)(D + 1) products
-        per_pair = sum(k + (k - 1) * 3 for k in term_ks)
+        # per pair and term: (k - 1)(D + 1) products; the points >= 2 are
+        # reached by adding differences
+        per_pair = sum((k - 1) * 3 for k in term_ks)
         res["bound"] = bound(sum(term_ks) * size * elem_bytes(field), per_pair * size // 2, field=field)
     return res
 
@@ -369,9 +413,44 @@ def check_keccak(gen):
     return {
         "err": max(max_err(glo, wlo), max_err(ghi, whi)),
         "ms": cuda_ms(lambda: tdev.keccak_f1600_device(one_lo, one_hi), 50),
+        "device_ms": device_ms(lambda: tdev.keccak_f1600_device(one_lo, one_hi), "keccak_f1600_kernel"),
         "plain_ms": cuda_ms(lambda: tdev.keccak_f1600_plain(one_lo, one_hi), 5),
         "bound": bound(4 * 25 * 8, int_ops=24 * 213 * 2),
     }
+
+
+TRANSCRIPT_GRID = ((1, 2, 3), (0, 32, 100, 135), (1, 7, 1024))  # D, pos, G
+
+
+def check_transcript_round(field, D, pos, G, gen, timed=False):
+    """transcript_round against transcript_round_plain from a random sponge
+    with pos pending bytes and random (D+1, L, G) partials whose column
+    sums stay below 2^56: every output tensor equal."""
+    L = field.n_limbs
+    partials = torch.randint(0, 1 << 40, (D + 1, L, G), generator=gen, device=DEVICE, dtype=torch.int64)
+    lo = torch.randint(0, 1 << 32, (25,), generator=gen, device=DEVICE, dtype=torch.int64)
+    hi = torch.randint(0, 1 << 32, (25,), generator=gen, device=DEVICE, dtype=torch.int64)
+    buf = torch.zeros(tdev.RATE, dtype=torch.int64, device=DEVICE)
+    buf[:pos] = torch.randint(0, 256, (pos,), generator=gen, device=DEVICE, dtype=torch.int64)
+    want = K.transcript_round_plain(field, pos, lo, hi, buf, partials)
+    got = K.transcript_round(field, pos, lo, hi, buf, partials)
+    torch.cuda.synchronize()
+    for name, w, g in zip(("lo", "hi", "buf", "total", "challenge", "challenge (Montgomery)"), want, got):
+        if w.dtype != g.dtype or not torch.equal(w, g):
+            raise AssertionError(f"transcript_round {field.name} D={D} pos={pos} G={G}: {name} kernel != plain")
+    res = {"err": max(max_err(w, g) for w, g in zip(want, got))}
+    if timed:
+        run = lambda: K.transcript_round(field, pos, lo, hi, buf, partials)  # noqa: E731
+        res["ms"] = cuda_ms(run, 50)  # back to back: the host wrapper's rate
+        res["device_ms"] = device_ms(run, "transcript_round_kernel")
+        res["plain_ms"] = cuda_ms(lambda: K.transcript_round_plain(field, pos, lo, hi, buf, partials), 3)
+        # the partials read once, the sponge read and written, the outputs
+        # written; a permutation of ~213 64-bit logic ops a round (two 32-bit
+        # ops each) for every block the absorb fills, and one for the digest
+        nbytes = partials.numel() * 8 + 2 * (2 * 25 + tdev.RATE) * 8 + (D + 3) * L * 4
+        perms = (pos + (D + 1) * field.n_bytes) // tdev.RATE + 1
+        res["bound"] = bound(nbytes, int_ops=perms * 24 * 213 * 2)
+    return res
 
 
 def phase_kernels() -> dict:
@@ -410,8 +489,22 @@ def phase_kernels() -> dict:
     torch.cuda.empty_cache()
     timed["keccak_f1600"] = check_keccak(gen)
     errs["keccak_f1600"] = timed["keccak_f1600"]["err"]
-    log(f"  keccak_f1600 one state: kernel {timed['keccak_f1600']['ms']:.4f} ms, "
-        f"plain {timed['keccak_f1600']['plain_ms']:.4f} ms")
+    log(f"  keccak_f1600 one state: back-to-back calls {timed['keccak_f1600']['ms']:.4f} ms, kernel "
+        f"{timed['keccak_f1600']['device_ms']:.4f} ms (profiler), plain {timed['keccak_f1600']['plain_ms']:.4f} ms")
+    Ds, poss, Gs = TRANSCRIPT_GRID
+    for field in (GOLDILOCKS, FR, BLS12_377_FR):
+        for D in Ds:
+            for pos in poss:
+                for G in Gs:
+                    res = check_transcript_round(field, D, pos, G, gen)
+                    errs["transcript_round"] = max(errs["transcript_round"], res["err"])
+        log(f"transcript_round == plain version (every output): {field.name} at D {Ds} x pos {poss} x G {Gs}")
+    # the main path's first round: 2^24 BLS12-381, degree 1, pos 32 after
+    # the claimed sum, round_sums' 1024 partials
+    timed["transcript_round"] = res = check_transcript_round(FR, 1, 32, C.MAX_PARTIALS, gen, timed=True)
+    log(f"  transcript_round BLS12-381 D=1 pos=32 G={C.MAX_PARTIALS}: back-to-back calls {res['ms']:.4f} ms, "
+        f"kernel {res['device_ms']:.4f} ms (profiler), plain {res['plain_ms']:.4f} ms, "
+        f"bound {res['bound'][0]:.6f} ms ({res['bound'][1]})")
     for name in timed:
         timed[name]["err"] = errs[name]
     return timed
@@ -428,9 +521,13 @@ def phase_gkr_kernels() -> dict:
         for size in sizes:
             for k in range(1, C.FOLD_MAX_FACTORS + 1):
                 errs["fold"] = max(errs["fold"], check_fold(field, size, k, gen)["err"])
+        for log_n in range(4, GKR_LOG + 1):
             for _, ks in C.ROUND_SUMS_TERMS_SHAPES:
-                errs["round_sums_terms"] = max(errs["round_sums_terms"], check_round_sums_terms(field, size, ks, gen)["err"])
-        log(f"GKR kernels == plain versions: {field.name} at sizes {sizes}")
+                res = check_round_sums_terms(field, 1 << log_n, ks, gen)
+                errs["round_sums_terms"] = max(errs["round_sums_terms"], res["err"])
+        log(f"GKR kernels == plain versions: {field.name}, fold at sizes {sizes}, round_sums_terms "
+            f"{C.ROUND_SUMS_TERMS_SHAPES} at 2^4..2^{GKR_LOG}")
+        torch.cuda.empty_cache()
     timed = {
         "fold": check_fold(FR, 1 << GKR_LOG, 4, gen, timed=True),
         "round_sums_terms": check_round_sums_terms(FR, 1 << GKR_LOG, (2, 2), gen, timed=True),
@@ -627,9 +724,11 @@ def phase_gkr_main(reps: int = 5) -> dict:
     warm = timed_runs(lambda: proofs.append(GKRProver.prove(FR, c, inputs)[0]), reps)
     if any(p != proof for p in proofs):
         raise AssertionError("GKR prove is not deterministic")
+    one = launches_of(lambda: GKRProver.prove(FR, c, inputs))
+    assert_one_transcript_round(one, rounds, "a warm GKR chain prove", keccak=True)
     log(f"GKR {c.depth} x 2^{GKR_LOG} BLS12-381 prove (device chain, {rounds} transcript rounds): "
         f"cold {cold:.6f} s; warm {spread(warm)}")
-    log(f"GKR path kernel launches (cold prove): {counts}")
+    log(f"GKR path kernel launches (cold prove): {counts}; one warm prove: {one}")
     missing = [k for k in GKR_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"GKR path never launched {missing}")
@@ -750,11 +849,33 @@ def phase_ntt_main(reps: int = 5) -> dict:
     return counts
 
 
+def launches_of(fn) -> dict[str, int]:
+    """The kernel launches fn() makes (kernels it launches at least once)."""
+    before = _cuda.launches()
+    fn()
+    return {k: v - before[k] for k, v in _cuda.launches().items() if v != before[k]}
+
+
+def assert_one_transcript_round(one: dict[str, int], rounds: int, what: str, keccak: bool) -> None:
+    """A device round is one transcript_round launch; the sumcheck rounds'
+    Fiat-Shamir steps never launch keccak_f1600 (``keccak``: whether the
+    path permutes outside its rounds, as GKR's claim binds and line steps do)."""
+    if one.get("transcript_round", 0) != rounds:
+        raise AssertionError(f"{what} launched {one}: want exactly one transcript_round a device round ({rounds})")
+    if bool(one.get("keccak_f1600", 0)) != keccak:
+        raise AssertionError(f"{what} launched {one}: the sumcheck rounds run their Fiat-Shamir step in "
+                             "transcript_round and may no longer launch keccak_f1600"
+                             + ("; GKR's binds and line steps must" if keccak else ""))
+
+
 def phase_tier_differential() -> None:
     gen = torch.Generator(device=DEVICE).manual_seed(14)
     poly = ProductPoly([MLE(FR, 14, rand_limbs(FR, (FR.n_limbs, 1 << 14), gen))])
     total = dev.decode_ints(FR, dev.sum_mod(FR, poly.polynomials[0].data).reshape(-1, 1))[0]
-    device_tr = SumcheckProver.prove_partial(poly, total, max_var_degree=1)
+    out = []
+    one = launches_of(lambda: out.append(SumcheckProver.prove_partial(poly, total, max_var_degree=1)))
+    assert_one_transcript_round(one, 14, "a 2^14 device-transcript prove", keccak=False)
+    device_tr = out[0]
     synced = SumcheckProver.prove_partial(poly, total, max_var_degree=1, device_transcript=False)
     host = SumcheckProver.prove_partial(
         poly, total, max_var_degree=1, tail_size=1 << 30, device_transcript=False
@@ -816,6 +937,9 @@ def phase_main_path(reps: int = 5) -> dict:
         raise AssertionError("prove_partial is not deterministic")
     log(f"prove_partial 2^{n}: cold {prove_cold:.6f} s; warm {spread(proves)} "
         f"({sumcheck_prover_mults(n, 1, 1) / statistics.median(proves):.6e} field-mults/s at the median)")
+    one = launches_of(lambda: SumcheckProver.prove_partial(pp, total, max_var_degree=1))
+    assert_one_transcript_round(one, n, f"a warm 2^{n} prove_partial", keccak=False)
+    log(f"one warm prove_partial 2^{n} launched {one}")
 
     t0 = time.perf_counter()
     sub = SumcheckVerifier.verify_partial(FR, proof)
@@ -877,6 +1001,9 @@ def main() -> int:
             # and torch.fft is complex floating point, not a finite-field DFT
             "library_ms": None,
             **res.get("last_level", {}),  # ntt_ladder: the 2^20 transform's other level
+            # transcript_round, keccak_f1600: the profiler's device time of
+            # the kernel alone, shorter than its wrapper's ms
+            **({"device_ms": res["device_ms"]} if "device_ms" in res else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -27,8 +27,8 @@ microbenchmark gives the card's Montgomery product rate (field.cuh's
 also times that checkout's ``ntt_ladder`` on (L, 1024, 1024) limbs in the
 same call (PR 3's kernel, one row of 1024 a block along the last axis).
 
-Variant sources are built under zk_tpu_torch/_build/probe/ (gitignored),
-one nvcc process each, all started together.  The card's name and power
+Variant sources are built under zk_tpu_torch/_build/probe/ (gitignored)
+by scripts/_probe.py, one nvcc process each, all started together.  The card's name and power
 limit come first, as nvidia-smi reports them.
 """
 
@@ -46,6 +46,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from _probe import build, card_line, patch  # noqa: E402
 from chip_smoke import bound, cuda_ms, elem_bytes, rand_limbs  # noqa: E402
 from zk_tpu_torch import _cuda  # noqa: E402
 from zk_tpu_torch.fields import BLS12_381_FR as FR  # noqa: E402
@@ -142,9 +143,7 @@ extern "C" int probe_rate(int chains, int blocks_per_sm, int iters, const uint32
 
 
 def _patch(src: str, old: str, new: str) -> str:
-    if src.count(old) != 1:
-        raise RuntimeError(f"csrc/ntt.cu changed: the probe's patch point {old.strip()[:60]!r} is not unique")
-    return src.replace(old, new)
+    return patch(src, old, new, "csrc/ntt.cu")
 
 
 def variant_sources() -> dict[str, str]:
@@ -160,25 +159,10 @@ def variant_sources() -> dict[str, str]:
 
 
 def build_all() -> dict[str, ctypes.CDLL]:
-    """One nvcc process per variant and the microbenchmark, all at once."""
-    nvcc = _cuda.find_nvcc()
-    if nvcc is None:
-        raise RuntimeError("nvcc not found")
-    PROBE_DIR.mkdir(parents=True, exist_ok=True)
-    sources = {**variant_sources(), "rate": RATE}
-    jobs = {}
-    for name, text in sources.items():
-        cu = PROBE_DIR / f"{name}.cu"
-        cu.write_text(text)
-        so = PROBE_DIR / f"lib{name}.so"
-        cmd = [nvcc, *_cuda.NVCC_FLAGS, "-shared", "-I", str(_cuda.CSRC), "-o", str(so), str(cu)]
-        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    """The variants and the microbenchmark, built together."""
+    sources = {name: (text, _cuda.CSRC) for name, text in {**variant_sources(), "rate": RATE}.items()}
     libs = {}
-    for name, (so, proc) in jobs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{err}")
-        lib = ctypes.CDLL(str(so))
+    for name, (lib, _, _) in build(sources, PROBE_DIR).items():
         P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         if name == "rate":
             lib.probe_rate.argtypes = [I, I, I, P, P, P, P]
@@ -288,8 +272,7 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this probe runs only on a GPU")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     parent = None
     if args.parent:  # its build runs beside ours
         parent = subprocess.Popen([sys.executable, "-c", PARENT_SNIPPET], cwd=args.parent, stdout=subprocess.PIPE,

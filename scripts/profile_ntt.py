@@ -18,7 +18,10 @@ seeded generator), it prints, per field:
 With ``--mle`` it does the same for chip_smoke.py's warm 2^24 BLS12-381
 ``MLE.evaluate`` (the fold_multi chain), and splits one evaluation's host
 time into encoding the point, enqueueing the folds, waiting for the card
-and decoding the value.
+and decoding the value.  With ``--prove`` it does the same for
+chip_smoke.py's warm 2^24 BLS12-381 ``prove_partial`` (degree 1, the
+device transcript): its walls, and under the profiler its device ops,
+busy share and kernels.
 
 The card's name and power limit come first, as nvidia-smi reports them.
 """
@@ -38,6 +41,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import main_table, rand_limbs  # noqa: E402
+from zk_tpu_torch import ProductPoly, SumcheckProver  # noqa: E402
 from scripts.profile_gkr import profiled, synced  # noqa: E402
 from zk_tpu_torch.fields import BLS12_381_FR, GOLDILOCKS  # noqa: E402
 from zk_tpu_torch.fields import device as dev  # noqa: E402
@@ -72,11 +76,26 @@ def profile_mle(reps: int, n: int = 24) -> None:
           flush=True)
 
 
+def profile_prove(reps: int, n: int = 24) -> None:
+    """chip_smoke.py's warm 2^24 BLS12-381 prove_partial: walls and a profile."""
+    poly = main_table(n)
+    field = poly.field
+    total = dev.decode_ints(field, dev.sum_mod(field, poly.data).reshape(-1, 1))[0]
+    pp = ProductPoly([poly])
+    prove = lambda: SumcheckProver.prove_partial(pp, total, max_var_degree=1)  # noqa: E731
+    prove()
+    runs = [synced(prove)[1] for _ in range(reps)]
+    print(f"prove_partial 2^{n}: median {statistics.median(runs):.6f} s, min {min(runs):.6f} s, "
+          f"max {max(runs):.6f} s over {reps}", flush=True)
+    profiled(prove, f"profile, prove_partial 2^{n}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log", type=int, default=20, help="log2 of the transform length")
     ap.add_argument("--reps", type=int, default=5, help="warm roundtrips per field")
     ap.add_argument("--mle", action="store_true", help="also profile the warm 2^24 MLE.evaluate")
+    ap.add_argument("--prove", action="store_true", help="also profile the warm 2^24 prove_partial")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this profile runs only on a GPU")
@@ -100,6 +119,8 @@ def main() -> int:
         profiled(roundtrip, f"profile, ntt+intt 2^{args.log} {name}")
     if args.mle:
         profile_mle(args.reps)
+    if args.prove:
+        profile_prove(args.reps)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     print(f"after the runs: {smi}", flush=True)

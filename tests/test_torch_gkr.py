@@ -117,6 +117,13 @@ def test_evaluate_device_matches_jax():
     assert [dev.decode_ints(GOLDILOCKS, g) for g in got] == jc.evaluate(JG, inputs)
 
 
+def _low_opt(fn, static, *args):
+    """A jitted zk_tpu function fn(*static, *args), compiled at XLA's lowest
+    backend optimization level: the same integers for about half the
+    compile CPU (the jit cache that zk_tpu's own tests use is left alone)."""
+    return fn.lower(*static, *args).compile(compiler_options={"xla_backend_optimization_level": 0})(*args)
+
+
 def test_phase_tables_match_both_jax_strategies():
     """The port's one scatter strategy (int64 index_add_ + one renorm)
     against the reference's scatter AND gather-plan variants."""
@@ -128,16 +135,22 @@ def test_phase_tables_match_both_jax_strategies():
     jlev = jgdev.evaluate_device(jc, JG, inputs)
     r = [rng.randrange(JG.p) for _ in range(7)]
     u = [rng.randrange(JG.p) for _ in range(6)]
-    j_eq_r, j_w = jgdev.eq_table(JG, r), jlev[1]
-    j_eq_u, j_wu = jgdev.eq_table(JG, u), jgdev.mle_eval_points(JG, jlev[1], [u])
+    # eq_table and mle_eval_points, through the kernels they dispatch to
+    j_eq_r = _low_opt(jgdev._eq_expand, (JG, 7), jgdev._mont_rs(JG, r))
+    j_eq_u = _low_opt(jgdev._eq_expand, (JG, 6), jgdev._mont_rs(JG, u))
+    j_w = jlev[1]
+    j_wu = _low_opt(jgdev._eval_points_kernel, (JG, 6), j_w, jgdev._mont_rs(JG, u).reshape(1, 6, JG.n_limbs))
+    assert dev.decode_ints(GOLDILOCKS, _cpu(j_eq_r)) == dev.decode_ints(GOLDILOCKS, gdev.eq_table(GOLDILOCKS, r, "cpu"))
+    assert dev.decode_ints(GOLDILOCKS, _cpu(j_wu)) == [mle_eval_host(GOLDILOCKS, dev.decode_ints(GOLDILOCKS, _cpu(j_w)), u)]
     left, right, is_add = jc.device_wiring(0)
     want1 = [
-        jgdev._phase1_tables(JG, 64, j_eq_r, j_w, left, right, is_add),
-        jgdev._phase1_tables_g(JG, 64, j_eq_r, j_w, right, is_add, jc.device_gather_plan(0, "left")),
+        _low_opt(jgdev._phase1_tables, (JG, 64), j_eq_r, j_w, left, right, is_add),
+        _low_opt(jgdev._phase1_tables_g, (JG, 64), j_eq_r, j_w, right, is_add, jc.device_gather_plan(0, "left")),
     ]
     want2 = [
-        jgdev._phase2_tables(JG, 64, j_eq_r, j_eq_u, j_w, j_wu, left, right, is_add),
-        jgdev._phase2_tables_g(JG, 64, j_eq_r, j_eq_u, j_w, j_wu, left, is_add, jc.device_gather_plan(0, "right")),
+        _low_opt(jgdev._phase2_tables, (JG, 64), j_eq_r, j_eq_u, j_w, j_wu, left, right, is_add),
+        _low_opt(jgdev._phase2_tables_g, (JG, 64), j_eq_r, j_eq_u, j_w, j_wu, left, is_add,
+                 jc.device_gather_plan(0, "right")),
     ]
     w = _cpu(j_w)
     got1 = gdev.phase1_tables(GOLDILOCKS, c, 0, _cpu(j_eq_r), w)
@@ -272,6 +285,36 @@ def test_verifier_rejects_tampered_w_b():
 def test_verifier_rejects_wrong_inputs():
     c, proof = _two_layer_proof()
     assert GKRVerifier.verify(BLS12_381_FR, c, [2, 3, 4, 6], proof, device="cpu") is False
+
+
+def test_non_canonical_output_bytes_rejected_by_both_packages():
+    """A Goldilocks proof whose output y travels as the 8 bytes of y + p:
+    both verifiers absorb the bytes received, so the challenges move and
+    both raise SumcheckError; bytes -> proof -> bytes is the identity in
+    both packages (host ints only)."""
+    from zk_tpu.sumcheck import SumcheckError as JSumcheckError
+
+    c = two_layer()
+    jc = jcircuit.Circuit([[jcircuit.Gate(g.op, g.left, g.right) for g in layer] for layer in c.layers], 4)
+    inputs = [2, 3, 4, 5]
+    proof, _ = GKRProver.prove(GOLDILOCKS, c, inputs, device="cpu")
+    data = gkr_proof_to_bytes(GOLDILOCKS, proof)
+    y = proof.outputs[0]
+    assert data[4:12] == y.to_bytes(8, "big") and y + GOLDILOCKS.p < 1 << 64
+    bad = data[:4] + (y + GOLDILOCKS.p).to_bytes(8, "big") + data[12:]
+
+    port = gkr_proof_from_bytes(GOLDILOCKS, bad)
+    ref = jgkr.gkr_proof_from_bytes(JG, bad)
+    assert port.outputs == ref.outputs == [y]
+    assert gkr_proof_to_bytes(GOLDILOCKS, port) == jgkr.gkr_proof_to_bytes(JG, ref) == bad
+    with pytest.raises(JSumcheckError):
+        jgkr.GKRVerifier.verify(JG, jc, inputs, ref)
+    with pytest.raises(SumcheckError):
+        GKRVerifier.verify(GOLDILOCKS, c, inputs, port, device="cpu")
+    good = gkr_proof_from_bytes(GOLDILOCKS, data)
+    assert good == port and gkr_proof_to_bytes(GOLDILOCKS, good) == data
+    assert GKRVerifier.verify(GOLDILOCKS, c, inputs, good, device="cpu")
+    assert jgkr.GKRVerifier.verify(JG, jc, inputs, jgkr.gkr_proof_from_bytes(JG, data))
 
 
 def test_verifier_device_checks_on_a_wide_circuit():

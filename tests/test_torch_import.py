@@ -16,6 +16,7 @@ from zk_tpu_torch.fields import device as dev
 from zk_tpu_torch.fields import kernels as FK
 from zk_tpu_torch.gkr.circuit import Circuit, Gate
 from zk_tpu_torch.sumcheck import capacity as C
+from zk_tpu_torch.sumcheck import kernels as K
 from zk_tpu_torch.transcript import device as tdev
 
 N = importlib.import_module("zk_tpu_torch.ntt")
@@ -95,11 +96,13 @@ def test_cpu_wrappers_do_not_count_launches():
     FK.mont_mul(FR, a, a)
     FK.lerp(FR, a, a, r)
     N.ntt(FR, list(range(2048)), device="cpu")  # two ladder levels, the upper one with its twiddles
+    zb = torch.zeros(tdev.RATE, dtype=torch.int64)
+    K.transcript_round(FR, 0, z, z, zb, torch.zeros((2, L, 3), dtype=torch.int64))
     assert all(v == 0 for v in _cuda.launches().values())
 
 
 @pytest.mark.parametrize("kernel", ["fold_multi", "round_sums", "fold_halfsums", "keccak", "fold", "round_sums_terms",
-                                    "ntt_ladder", "mont_mul", "lerp", "decode"])
+                                    "ntt_ladder", "mont_mul", "lerp", "decode", "transcript_round"])
 def test_no_fallback_on_other_devices(kernel):
     """A tensor that is neither on the CPU nor on a CUDA card raises; it
     never takes the plain version."""
@@ -119,6 +122,9 @@ def test_no_fallback_on_other_devices(kernel):
         "mont_mul": lambda: FK.mont_mul(FR, stack[0], stack[0]),
         "lerp": lambda: FK.lerp(FR, stack[0], stack[0], r),
         "decode": lambda: dev.decode_ints(FR, stack[0]),  # un-scales through mont_mul
+        "transcript_round": lambda: K.transcript_round(
+            FR, 0, z, z, torch.zeros(tdev.RATE, dtype=torch.int64, device="meta"),
+            torch.zeros((2, L, 3), dtype=torch.int64, device="meta")),
     }
     with pytest.raises(ValueError, match="unsupported device"):
         calls[kernel]()

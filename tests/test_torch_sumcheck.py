@@ -2,9 +2,10 @@
 proof bytes, challenges and accept/reject decisions (exact).
 
 The same seeded tables go to both packages (through interop); the JAX side
-runs its own CPU tiers (host ints and jnp graphs, with and without its
-device transcript), which its own tests hold byte-identical to its Pallas
-tiers.  The frozen goldens in tests/goldens/ are rebuilt through the port.
+runs its own CPU tiers (host ints, and its jnp graphs with its device
+transcript on Goldilocks), which its own tests hold byte-identical to each
+other and to its Pallas tiers.  The frozen goldens in tests/goldens/ are
+rebuilt through the port.
 """
 
 import json
@@ -53,11 +54,19 @@ def _golden(name: str) -> bytes:
 # --------------------------------------------------------------------------
 
 
-def _p_2ab_3bc():
+def _p_2ab_3bc(device="cpu"):
     evals = CoeffMultilinearPolynomial.new(
         JFR, 3, [(2, [True, True, False]), (3, [False, True, True])]
     ).to_evaluation_form()
-    return ProductPoly([MLE.new(FR, 3, evals, device="cpu")])
+    return ProductPoly([MLE.new(FR, 3, evals, device=device)])
+
+
+def _p_deg2(device="cpu"):
+    p1 = CoeffMultilinearPolynomial.new(
+        JFR, 2, [(2, [True, False]), (0, [False, True]), (3, [False, False])]
+    ).to_evaluation_form()
+    p2 = CoeffMultilinearPolynomial.new(JFR, 2, [(1, [True, True])]).to_evaluation_form()
+    return ProductPoly([MLE.new(FR, 2, p1, device=device), MLE.new(FR, 2, p2, device=device)])
 
 
 def test_golden_2ab3bc_prove():
@@ -77,11 +86,7 @@ def test_golden_2ab3bc_partial_and_challenges():
 
 
 def test_golden_deg2_prove():
-    p1 = CoeffMultilinearPolynomial.new(
-        JFR, 2, [(2, [True, False]), (0, [False, True]), (3, [False, False])]
-    ).to_evaluation_form()
-    p2 = CoeffMultilinearPolynomial.new(JFR, 2, [(1, [True, True])]).to_evaluation_form()
-    poly = ProductPoly([MLE.new(FR, 2, p1, device="cpu"), MLE.new(FR, 2, p2, device="cpu")])
+    poly = _p_deg2()
     proof = SumcheckProver.prove(poly, 5, max_var_degree=2)
     assert proof_to_bytes(FR, proof) == _golden("sumcheck_deg2_prove.bin")
     assert SumcheckVerifier.verify(poly, proof)
@@ -96,6 +101,24 @@ def test_golden_wrong_sum_rejected_as_jax_rejects_it():
     jpoly = JProductPoly([JMLE.new(JFR, 3, _p_2ab_3bc().polynomials[0].evaluation_ints())])
     with pytest.raises(jsc.SumcheckError):
         jsc.SumcheckVerifier.verify(jpoly, jsc.proof_from_bytes(JFR, data))
+
+
+@pytest.mark.cuda
+def test_cuda_device_transcript_rounds_give_the_goldens():
+    """On a card, every round on the device (tail_size=1: transcript_round
+    and the table kernels, degree 1 and 2): the frozen golden bytes and
+    challenges."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev1 = dict(device_transcript=True, tail_size=1)
+    proof = SumcheckProver.prove(_p_2ab_3bc("cuda"), 10, max_var_degree=1, **dev1)
+    assert proof_to_bytes(FR, proof) == _golden("sumcheck_2ab3bc_prove.bin")
+    proof, challenges = SumcheckProver.prove_partial(_p_2ab_3bc("cuda"), 10, max_var_degree=1, **dev1)
+    assert proof_to_bytes(FR, proof) == _golden("sumcheck_2ab3bc_partial.bin")
+    with open(os.path.join(GOLDENS, "challenges.json")) as f:
+        assert [hex(c) for c in challenges] == json.load(f)["partial_challenges"]
+    proof = SumcheckProver.prove(_p_deg2("cuda"), 5, max_var_degree=2, **dev1)
+    assert proof_to_bytes(FR, proof) == _golden("sumcheck_deg2_prove.bin")
 
 
 def test_golden_proof_bytes_roundtrip():
@@ -134,8 +157,11 @@ def _jax_proofs():
         field = JF[name]
         jpoly = JProductPoly([JMLE(field, n, jnp.asarray(_table(field, n, 99)))])
         total = sum(jpoly.polynomials[0].evaluation_ints()) % field.p
-        part, chs = jsc.SumcheckProver.prove_partial(jpoly, total, max_var_degree=1, device_transcript=False)
-        full = jsc.SumcheckProver.prove(jpoly, total, max_var_degree=1, device_transcript=False)
+        # zk_tpu's host-int tier: the same bytes as its jnp tier (zk_tpu's own
+        # tests), without compiling its BLS12-381 graphs (~30 s of CPU)
+        host = dict(max_var_degree=1, tail_size=1 << 30, device_transcript=False)
+        part, chs = jsc.SumcheckProver.prove_partial(jpoly, total, **host)
+        full = jsc.SumcheckProver.prove(jpoly, total, **host)
         out[name] = dict(total=total, partial=jsc.proof_to_bytes(field, part).hex(), challenges=chs,
                          full=jsc.proof_to_bytes(field, full).hex())
     return out

@@ -14,6 +14,7 @@ from zk_tpu_torch import interop
 from zk_tpu_torch.fields import BLS12_377_FR, BLS12_381_FR, GOLDILOCKS
 from zk_tpu_torch.fields import device as tdev
 from zk_tpu_torch.sumcheck import kernels as K
+from zk_tpu_torch.transcript import Transcript as TTranscript
 from zk_tpu_torch.transcript import device as tt
 
 torch.set_num_threads(1)
@@ -124,6 +125,73 @@ def test_transcript_round_matches_host_round(field):
     assert tdev.decode_ints(field, total, mont=False) == sums
     assert tdev.decode_ints(field, canon, mont=False) == [want]
     assert tdev.decode_ints(field, mont) == [want]
+
+
+def _round_case(field, D, pos, G, seed):
+    """A host transcript with pos pending bytes, random (D+1, L, G)
+    partials whose column sums stay below 2^56, and the host's own round:
+    (state, partials, canonical sums, challenge, host state after)."""
+    rng = np.random.default_rng(seed)
+    host = TTranscript()
+    host.append(rng.integers(0, 256, size=tt.RATE + pos, dtype=np.uint8).tobytes())  # lanes not zero
+    state = tt.state_to_device(*host.export_state(), "cpu")
+    assert state[3] == pos
+    partials = torch.from_numpy(rng.integers(0, 1 << 40, size=(D + 1, field.n_limbs, G), dtype=np.int64))
+    sums = K.decode_sums(field, partials)
+    host.append(field.elements_to_bytes(sums))
+    challenge = host.sample_field_element(field)
+    return state, partials, sums, challenge, host.export_state()
+
+
+# pos 100 with D = 3 crosses a block boundary at BLS12-381 (100 + 128 > 136);
+# pos 135 = RATE - 1 pads with the single byte 0x81 when nothing follows
+@pytest.mark.parametrize("pos", [0, 32, 100, 135])
+@pytest.mark.parametrize("D", [1, 2, 3])
+@pytest.mark.parametrize("field", [GOLDILOCKS, BLS12_381_FR], ids=lambda f: f.name)
+def test_transcript_round_plain_matches_host_transcript(field, D, pos):
+    """transcript_round_plain (the CPU route of transcript_round, the
+    kernel's plain version) against the port's host Transcript: the round
+    sums, the challenge in both forms and the sponge it leaves, for D = 1..3,
+    pos in {0, 32, 100, 135} and G in {1, 7, 1024} (host ints only)."""
+    G = (1, 7, 1024)[(D + pos) % 3]
+    (lo, hi, buf, _), partials, sums, challenge, after = _round_case(field, D, pos, G, 8 * D + pos)
+    plain = K.transcript_round_plain(field, pos, lo.clone(), hi.clone(), buf.clone(), partials.clone())
+    wrapped = K.transcript_round(field, pos, lo, hi, buf, partials)  # its CPU route is the plain version
+    assert all(torch.equal(a, b) for a, b in zip(plain, wrapped))
+    lo, hi, buf, total, canon, mont = plain
+    assert tuple(total.shape) == (field.n_limbs, D + 1) and total.dtype == torch.int32
+    assert tdev.decode_ints(field, total, mont=False) == sums
+    assert bytes(tt.serialize_canonical(field, total).tolist()) == field.elements_to_bytes(sums)
+    assert tdev.decode_ints(field, canon, mont=False) == [challenge]
+    assert tdev.decode_ints(field, mont) == [challenge]
+    assert tt.state_to_host(lo, hi, buf, 32) == after
+
+
+def test_transcript_round_plain_pads_a_lone_byte_at_rate_minus_one():
+    """Data that leaves exactly RATE - 1 bytes pending: Goldilocks D = 1 is
+    16 bytes, so pos = 119 ends at 135 and the digest block's last byte is
+    0x01 | 0x80."""
+    (lo, hi, buf, pos), partials, sums, challenge, after = _round_case(GOLDILOCKS, 1, 119, 7, 3)
+    lo, hi, buf, total, canon, mont = K.transcript_round_plain(GOLDILOCKS, pos, lo, hi, buf, partials)
+    assert tdev.decode_ints(GOLDILOCKS, total, mont=False) == sums
+    assert tdev.decode_ints(GOLDILOCKS, canon, mont=False) == [challenge]
+    assert tt.state_to_host(lo, hi, buf, 32) == after
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", [GOLDILOCKS, BLS12_381_FR], ids=lambda f: f.name)
+def test_cuda_transcript_round_matches_plain(field):
+    """On a card: the transcript_round kernel equals its plain version,
+    every output tensor, across D, pos and G."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    for D, pos, G in ((1, 32, 1024), (2, 0, 7), (3, 100, 1), (1, 135, 3)):
+        (lo, hi, buf, _), partials, *_ = _round_case(field, D, pos, G, D + pos)
+        args = [t.cuda() for t in (lo, hi, buf, partials)]
+        want = K.transcript_round_plain(field, pos, *args)
+        got = K.transcript_round(field, pos, *args)
+        for w, g in zip(want, got):
+            assert w.dtype == g.dtype and torch.equal(w, g)
 
 
 @pytest.mark.parametrize("sizes", [(0,), (1, 135), (136, 137, 500), (1 << 16,)])

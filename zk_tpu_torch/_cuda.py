@@ -43,7 +43,7 @@ NVCC_FLAGS = (
 
 KERNELS = (
     "fold_multi", "round_sums", "fold_halfsums", "keccak_f1600", "fold", "round_sums_terms",
-    "ntt_ladder", "mont_mul", "lerp",
+    "ntt_ladder", "mont_mul", "lerp", "transcript_round",
 )
 
 _LOCK = threading.Lock()
@@ -155,6 +155,7 @@ def lib() -> ctypes.CDLL:
         so.zk_ntt_ladder.argtypes = [I, P, P, I, I64, I64, I, P, P, P, P, P]
         so.zk_mont_mul.argtypes = [I, P, P, P, I64, P, P]
         so.zk_lerp.argtypes = [I, P, P, P, P, I64, P, P]
+        so.zk_transcript_round.argtypes = [I, P, I, I, P, P, P, I, P, P, P, P, P, P, P, P]
         for name in KERNELS:
             getattr(so, f"zk_{name}").restype = ctypes.c_int
         _LIB = so

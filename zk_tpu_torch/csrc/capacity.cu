@@ -53,12 +53,9 @@
 // at L = 16, so it sits near the memory bound like fold_multi; in place
 // is safe because the thread writing e is the only reader of e and never
 // writes e + size/2.  round_sums_terms reads 2 * K elements per pair and
-// does ~(D - 1) * K lerps plus (K - n_terms) * (D + 1) products, about
-// 12 Montgomery products per pair for GKR's (2, (2, 2)), so its integer
-// multiply bound and its memory bound are about level.  Both keep every
-// limb in registers (term sizes are template arguments, all loops
-// unrolled); neither shares anything between threads but the sums'
-// block reduction.
+// does (K - n_terms) * (D + 1) Montgomery products (the points t >= 2 by
+// adding differences), 6 a pair at GKR's (2, (2, 2)), so its memory bound
+// is the larger; its design is beside the kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -221,56 +218,64 @@ fold_kernel(const uint32_t* in, int64_t in_fac, int64_t in_stride, uint32_t* out
 // Two product terms of K0 and K1 factors (rows [0, K0) and [K0, K0 + K1)
 // of the stack): per pair, sum over the terms of the product of their
 // factors at each point 0..D, into the same accumulators.
+//
+// Design (measured: PERF.md, scripts/probe_round_sums_terms.py): block
+// (g, t) sums chunk g of the pairs at point t alone, so a thread keeps
+// only its point's L limb accumulators (the unrolled all-points kernel
+// held (D + 1) L of them and every factor of a pair: 183 registers, one
+// block an SM), and 256-thread blocks of several chunks and points share
+// an SM and hide each other's loads and barriers.  Point 0 reads the left
+// halves, point 1 the right ones, a point t >= 2 both, and reaches its
+// value by adding the difference, right + (t - 1) (right - left) mod p:
+// the fully reduced representative of the lerp at t, with no product.
+// So a pair costs (K - 2) (D + 1) products, 6 at (2, (2, 2)) against the
+// 10 of a lerp per point.  The factors are a runtime loop (one inlined
+// Montgomery product).  The D + 1 blocks of a chunk are neighbours and
+// read the same elements: the repeats hit L2, HBM moves each element
+// once.  Thread s adds the pairs s, s + THREADS, ... of its chunk, as the
+// wrapper's accumulator bound (partition) assumes.
+constexpr int RST_MIN_BLOCKS = 3;
+
 template <int NW, int D, int K0, int K1>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, RST_MIN_BLOCKS)
 round_sums_terms_kernel(const uint32_t* stack, int64_t fac_stride, int64_t row_stride,
                         int64_t half, int64_t chunk, FieldParams<NW> fp,
                         unsigned long long* partials, int G) {
   constexpr int L = 2 * NW;
   constexpr int K = K0 + K1;
-  uint32_t acc[(D + 1) * L];
+  const int pt = blockIdx.x % (D + 1);
+  const int64_t g = blockIdx.x / (D + 1);
+  uint32_t acc[L];
 #pragma unroll
-  for (int k = 0; k < (D + 1) * L; ++k) acc[k] = 0;
-  const int64_t beg = (int64_t)blockIdx.x * chunk;
+  for (int k = 0; k < L; ++k) acc[k] = 0;
+  const int64_t beg = g * chunk;
   const int64_t end = beg + chunk < half ? beg + chunk : half;
-  for (int64_t e = beg + threadIdx.x; e < end; e += blockDim.x) {
-    uint32_t left[K][NW], right[K][NW];
-#pragma unroll
+  for (int64_t e = beg + threadIdx.x; e < end; e += THREADS) {
+    uint32_t prod[NW];
+#pragma unroll 1
     for (int j = 0; j < K; ++j) {
-      load_elem<NW>(left[j], stack + j * fac_stride, row_stride, e);
-      load_elem<NW>(right[j], stack + j * fac_stride, row_stride, e + half);
-    }
+      const uint32_t* f = stack + j * fac_stride;
+      uint32_t left[NW], ev[NW];
+      if (pt != 1) load_elem<NW>(left, f, row_stride, e);
+      if (pt != 0) load_elem<NW>(ev, f, row_stride, e + half);
+      if (pt == 0) {
 #pragma unroll
-    for (int pt = 0; pt <= D; ++pt) {
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        uint32_t prod[NW], ev[NW];
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const bool in_term = t == 0 ? j < K0 : j >= K0;
-          const bool first = j == (t == 0 ? 0 : K0);
-          if (!in_term) continue;
-          if (pt == 0) {
-#pragma unroll
-            for (int w = 0; w < NW; ++w) ev[w] = left[j][w];
-          } else if (pt == 1) {
-#pragma unroll
-            for (int w = 0; w < NW; ++w) ev[w] = right[j][w];
-          } else {
-            lerp<NW>(ev, left[j], right[j], fp.pts[pt], fp);
-          }
-          if (first) {
-#pragma unroll
-            for (int w = 0; w < NW; ++w) prod[w] = ev[w];
-          } else {
-            mont_mul<NW>(prod, prod, ev, fp);
-          }
-        }
-        acc_limbs<NW>(acc + pt * L, prod);
+        for (int w = 0; w < NW; ++w) ev[w] = left[w];
+      } else if (pt >= 2) {
+        sub_mod<NW>(left, ev, left, fp);  // right - left
+#pragma unroll 1
+        for (int t = 1; t < pt; ++t) add_mod<NW>(ev, ev, left, fp);
       }
+      if (j == 0 || j == K0) {
+#pragma unroll
+        for (int w = 0; w < NW; ++w) prod[w] = ev[w];
+      } else {
+        mont_mul<NW>(prod, prod, ev, fp);
+      }
+      if (j == K0 - 1 || j == K - 1) acc_limbs<NW>(acc, prod);  // a term is complete
     }
   }
-  block_reduce_store<(D + 1) * L>(acc, partials, G);
+  block_reduce_store<L>(acc, partials + (int64_t)pt * L * G, G, g);
 }
 
 template <int NW>
@@ -338,7 +343,7 @@ int round_sums_terms_nw(int D, int K0, int K1, const uint32_t* stack, int64_t fa
   const FieldParams<NW> fp = load_params<NW>(params);
 #define ZK_RST(d, a, b)                                                                     \
   if (D == d && K0 == a && K1 == b) {                                                       \
-    round_sums_terms_kernel<NW, d, a, b><<<G, THREADS, 0, s>>>(stack, fac_stride, row_stride, \
+    round_sums_terms_kernel<NW, d, a, b><<<G * (d + 1), THREADS, 0, s>>>(stack, fac_stride, row_stride, \
                                                                half, chunk, fp, partials, G); \
     return (int)cudaGetLastError();                                                         \
   }

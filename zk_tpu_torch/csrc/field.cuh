@@ -186,11 +186,14 @@ __device__ __forceinline__ void acc_limbs(uint32_t acc[2 * NW], const uint32_t x
 }
 
 // Sum N per-thread u32 accumulators over the block (as u64) and write
-// total k to dst[k * G + blockIdx.x].  Every thread of the block must call
-// this.  blockDim.x must be a multiple of 32 and at most 1024.
+// total k to dst[k * G + col] (col: the block's partial, by default its
+// index).  Every thread of the block must call this.  blockDim.x must be a
+// multiple of 32 and at most 1024.
 template <int N>
 __device__ __forceinline__ void block_reduce_store(const uint32_t acc[N],
-                                                   unsigned long long* dst, int G) {
+                                                   unsigned long long* dst, int G,
+                                                   int64_t col = -1) {
+  if (col < 0) col = blockIdx.x;
   __shared__ unsigned long long red[32][N];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
@@ -205,6 +208,6 @@ __device__ __forceinline__ void block_reduce_store(const uint32_t acc[N],
   for (int k = threadIdx.x; k < N; k += blockDim.x) {
     unsigned long long s = 0;
     for (int w = 0; w < warps; ++w) s += red[w][k];
-    dst[(int64_t)k * G + blockIdx.x] = s;
+    dst[(int64_t)k * G + col] = s;
   }
 }

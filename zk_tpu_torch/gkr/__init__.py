@@ -26,6 +26,7 @@ oracle.  All three give the same bytes.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from dataclasses import field as dc_field
 
 import torch
 
@@ -63,6 +64,17 @@ class LayerProof:
 class GKRProof:
     outputs: list[int]
     layer_proofs: list[LayerProof]
+    # the output bytes as received (gkr_proof_from_bytes): the transcript
+    # binds what was received, so a non-canonical encoding of an output
+    # changes the challenges; excluded from equality
+    outputs_bytes: bytes | None = dc_field(default=None, compare=False)
+
+
+def _received_outputs_bytes(field: Field, proof: GKRProof) -> bytes | None:
+    """The received output bytes where they encode every output, else None
+    (the condition of zk_tpu/gkr/__init__.py:389-392 and :470-472)."""
+    ob = proof.outputs_bytes
+    return ob if ob is not None and len(ob) == len(proof.outputs) * field.n_bytes else None
 
 
 # --------------------------------------------------------------------------
@@ -204,7 +216,7 @@ class GKRProver:
                 w_b=w_b, w_c=w_c, q_evals=q_evals,
             ))
             m = m_next
-        return GKRProof(outputs=outputs, layer_proofs=layer_proofs), levels
+        return GKRProof(outputs=outputs, layer_proofs=layer_proofs, outputs_bytes=out_bytes), levels
 
     @staticmethod
     def prove_dense(field: Field, circuit: Circuit, inputs: list[int], device=None) -> tuple[GKRProof, list[list[int]]]:
@@ -246,7 +258,7 @@ class GKRProver:
 def gkr_proof_to_bytes(field: Field, proof: GKRProof) -> bytes:
     out = bytearray()
     out += len(proof.outputs).to_bytes(4, "big")
-    out += field.elements_to_bytes(proof.outputs)
+    out += _received_outputs_bytes(field, proof) or field.elements_to_bytes(proof.outputs)
     out += len(proof.layer_proofs).to_bytes(4, "big")
     for lp in proof.layer_proofs:
         sc = proof_to_bytes(field, lp.sumcheck)
@@ -273,7 +285,9 @@ def gkr_proof_from_bytes(field: Field, data: bytes) -> GKRProof:
         off += count * nb
         return out
 
-    outputs = elems(u32())
+    n_out = u32()
+    outputs_bytes = data[off : off + n_out * nb]
+    outputs = elems(n_out)
     layer_proofs = []
     for _ in range(u32()):
         sc_len = u32()
@@ -283,7 +297,7 @@ def gkr_proof_from_bytes(field: Field, data: bytes) -> GKRProof:
         layer_proofs.append(LayerProof(sumcheck=sc, w_b=w_b, w_c=w_c, q_evals=elems(u32())))
     if off != len(data):
         raise ValueError("trailing bytes in serialized GKR proof")
-    return GKRProof(outputs=outputs, layer_proofs=layer_proofs)
+    return GKRProof(outputs=outputs, layer_proofs=layer_proofs, outputs_bytes=outputs_bytes)
 
 
 # --------------------------------------------------------------------------
@@ -312,14 +326,17 @@ class GKRVerifier:
             raise GKRError("invalid proof: require one layer proof per circuit layer")
         d = inputs.device if isinstance(inputs, torch.Tensor) else dev.resolve_device(device)
 
-        out_bytes = field.elements_to_bytes(proof.outputs)
+        # the transcript binds the output bytes as received; the output
+        # table is encoded from the canonical bytes of the values
+        received = _received_outputs_bytes(field, proof)
         pad_n = 1 << circuit.layer_k(0)
+        canon = field.elements_to_bytes(proof.outputs) if received is None or pad_n > _DEVICE_MIN else None
         transcript = Transcript()
-        transcript.append(out_bytes)
+        transcript.append(received if received is not None else canon)
         r = transcript.sample_n_field_elements(field, circuit.layer_k(0))
         if pad_n > _DEVICE_MIN:
             pad = b"\x00" * ((pad_n - len(proof.outputs)) * field.n_bytes)
-            out_dev = dev.encode_bytes_be(field, out_bytes + pad, device=d)
+            out_dev = dev.encode_bytes_be(field, canon + pad, device=d)
             m = dev.decode_ints(field, gdev.mle_eval_points(field, out_dev, [r]))[0]
         else:
             m = mle_eval_host(field, proof.outputs + [0] * (pad_n - len(proof.outputs)), r)

@@ -154,4 +154,4 @@ def prove_chain(field: Field, circuit, inputs, device=None):
             w_c=q_evals[1],
             q_evals=q_evals,
         ))
-    return GKRProof(outputs=outputs, layer_proofs=layer_proofs), levels
+    return GKRProof(outputs=outputs, layer_proofs=layer_proofs, outputs_bytes=out_bytes), levels

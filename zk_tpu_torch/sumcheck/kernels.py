@@ -13,16 +13,24 @@ of Montgomery representatives, i.e. (true sum) * R modulo p, so:
   * ``decode_sums`` (on the host) does the same with Python ints.
 
 ``transcript_round`` is the per-round Fiat-Shamir step on the device:
-canonical sums -> big-endian bytes -> absorb -> squeeze -> challenge.
+canonical sums -> big-endian bytes -> absorb -> squeeze -> challenge.  On
+a CUDA tensor it is one launch of csrc/transcript.cu; on a CPU tensor it
+runs ``transcript_round_plain``, the same step as torch ops.
 ``HostTables`` is the exact host-int tier that finishes small tables.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
+from zk_tpu_torch import _cuda
 from zk_tpu_torch.fields.field import Field, LIMB_BITS
 from zk_tpu_torch.fields import device as dev
+from zk_tpu_torch.fields.kernels import check_cuda, cuda_stream, field_params
+from zk_tpu_torch.sumcheck.capacity import MAX_PARTIALS
 from zk_tpu_torch.transcript import device as tdev
 
 TAIL_SIZE = 2048  # tables at/below this size finish on host ints
@@ -46,8 +54,8 @@ def decode_sums(field: Field, partials: torch.Tensor) -> list[int]:
     return out
 
 
-def transcript_round(field: Field, pos: int, lo, hi, buf, partials: torch.Tensor):
-    """The per-round Fiat-Shamir step on the device: canonicalize the
+def transcript_round_plain(field: Field, pos: int, lo, hi, buf, partials: torch.Tensor):
+    """The per-round Fiat-Shamir step as torch ops: canonicalize the
     round-poly sums ((D+1, L, G) partials), absorb their BE bytes, squeeze
     the challenge (prover.rs:59-62, byte-exact with the host Transcript).
 
@@ -60,6 +68,50 @@ def transcript_round(field: Field, pos: int, lo, hi, buf, partials: torch.Tensor
     lo, hi, buf, _pos3, digest = tdev.sample_challenge(lo, hi, buf, pos2)
     mont, canon = tdev.challenge_from_digest(field, digest)
     return lo, hi, buf, total, canon, mont
+
+
+@functools.lru_cache(maxsize=None)
+def _round_params(field: Field) -> np.ndarray:
+    """csrc/transcript.cu RoundParams: field.cuh's block, then R^2 mod p."""
+    nw = field.n_limbs // 2
+    r2 = [(field.R2 >> (32 * w)) & 0xFFFFFFFF for w in range(nw)]
+    return np.concatenate([field_params(field), np.array(r2, dtype=np.uint32)])
+
+
+def transcript_round(field: Field, pos: int, lo, hi, buf, partials: torch.Tensor):
+    """One Fiat-Shamir round of the device prover, the same function as
+    ``transcript_round_plain``: one launch of csrc/transcript.cu on a CUDA
+    tensor, the plain version on a CPU tensor, ValueError on any other.
+    Replaces the round that zk_tpu jits around
+    zk_tpu/transcript/device.py::_rounds_kernel_pallas.  The outputs are
+    fresh tensors; nothing waits on the card."""
+    P, L, G = partials.shape
+    if field.p <= (1 << 32):
+        raise ValueError("device transcript requires p > 2^32")
+    if partials.dtype != torch.int64 or L != field.n_limbs or not 1 <= P <= 4:
+        raise ValueError(f"transcript_round: partials must be int64 (D+1 <= 4, {field.n_limbs}, G)")
+    if not 0 <= pos < tdev.RATE:
+        raise ValueError(f"transcript_round: pos {pos} not in [0, {tdev.RATE})")
+    if partials.device.type == "cpu":
+        return transcript_round_plain(field, pos, lo, hi, buf, partials)
+    check_cuda(field, "transcript_round", partials, lo, hi, buf)
+    if G > MAX_PARTIALS or field.n_bytes != 2 * L:
+        raise ValueError(f"transcript_round: no kernel for G = {G} partials of {field.name}")
+    if lo.dtype != torch.int64 or hi.dtype != torch.int64 or buf.dtype != torch.int64:
+        raise ValueError("transcript_round: the sponge must be int64 tensors")
+    out_lo, out_hi = torch.empty_like(lo), torch.empty_like(hi)
+    out_buf = torch.empty_like(buf)
+    total = torch.empty((L, P), dtype=torch.int32, device=partials.device)
+    canon = torch.empty((L, 1), dtype=torch.int32, device=partials.device)
+    mont = torch.empty((L, 1), dtype=torch.int32, device=partials.device)
+    err = _cuda.lib().zk_transcript_round(
+        L, partials.data_ptr(), P, G, lo.data_ptr(), hi.data_ptr(), buf.data_ptr(), pos,
+        _round_params(field).ctypes.data, out_lo.data_ptr(), out_hi.data_ptr(), out_buf.data_ptr(),
+        total.data_ptr(), canon.data_ptr(), mont.data_ptr(), cuda_stream(partials),
+    )
+    _cuda.check(err, "transcript_round")
+    _cuda.count_launch("transcript_round")
+    return out_lo, out_hi, out_buf, total, canon, mont
 
 
 class HostTables:
