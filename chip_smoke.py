@@ -60,12 +60,27 @@ one.  Phases, each an uncaught exception on failure:
      polynomials (the NTT route) checked at a random point, and one of 300
      coefficients equal to the schoolbook product; a warm 2^20 transform
      launches exactly two ntt_ladder passes and nothing else counted;
-     ntt_ladder and mont_mul launched.
+     ntt_ladder and mont_mul launched;
+  7. the sharded paths (``zk_tpu_torch.parallel``): at world size 1 on
+     NCCL (a ``file://`` rendezvous), the 2^24 table's sharded
+     prove_partial equal to SumcheckProver's (round polys, challenges,
+     bytes) with one transcript_round and one all_reduce a device round
+     and one table kernel a sharded round (asserted), the GKR prove of
+     phase 5's circuit with a mesh equal to the device chain's bytes and
+     verified, the sharded 2^20 NTT in Goldilocks and BLS12-381 equal to
+     ntt_device and inverted, each timed in turns against its
+     single-device path; every kernel of these paths launched; one 2^26
+     BLS12-381 sharded prove (a 4 GiB table) equal to the single-device
+     one, its subclaim checked; then world size 2 over gloo on the one
+     card: two ranks (this script with ``--sharded-rank``) prove the 2^24
+     table and the GKR circuit, both exit 0 with the single-device
+     bytes.
 
 Before the last line it prints the per-kernel JSON line
 ``{"kernels": [...]}`` (time, plain time and bound at the timed shape, the
-launches on each kernel's path; for ntt_ladder also the last level's time
-and bound); the last line is the result object.  Kernel times (``ms``) are
+launches on each kernel's path and, as ``sharded_launches``, in phase 7's
+world-size-1 run; for ntt_ladder also the last level's time and bound);
+the last line is the result object.  Kernel times (``ms``) are
 CUDA-event means of back-to-back calls.  For the two launches shorter than
 their host wrappers (transcript_round, keccak_f1600) that is the wrapper's
 rate, and the profiler's device time of the kernel alone stands beside it
@@ -75,6 +90,7 @@ as ``device_ms``.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import importlib
 import json
 import os
@@ -89,6 +105,7 @@ import numpy as np
 import torch
 
 from zk_tpu_torch import MLE, ProductPoly, SumcheckProver, SumcheckVerifier, UnivariatePolynomial, _cuda
+from zk_tpu_torch import parallel as par
 from zk_tpu_torch import transcript
 from zk_tpu_torch.fields import BLS12_377_FR, BLS12_381_FR, GOLDILOCKS
 from zk_tpu_torch.fields import device as dev
@@ -96,7 +113,7 @@ from zk_tpu_torch.fields import kernels as FK
 from zk_tpu_torch.gkr import GKRError, GKRProof, GKRProver, GKRVerifier, gkr_proof_to_bytes
 from zk_tpu_torch.gkr.chain import prove_chain
 from zk_tpu_torch.gkr.circuit import Circuit, Gate
-from zk_tpu_torch.sumcheck import SumcheckError
+from zk_tpu_torch.sumcheck import SumcheckError, chain_rounds
 from zk_tpu_torch.sumcheck import capacity as C
 from zk_tpu_torch.sumcheck import kernels as K
 from zk_tpu_torch.sumcheck import proof_to_bytes
@@ -133,6 +150,9 @@ KERNEL_INFO = {
 SUMCHECK_KERNELS = ("fold_multi", "round_sums", "fold_halfsums", "transcript_round")
 GKR_KERNELS = ("fold", "round_sums_terms", "fold_multi", "transcript_round", "keccak_f1600")
 NTT_KERNELS = ("ntt_ladder", "mont_mul")
+# the sharded sumcheck, GKR-with-a-mesh and sharded NTT paths
+SHARDED_KERNELS = ("fold_multi", "round_sums", "fold_halfsums", "transcript_round", "fold", "round_sums_terms",
+                   "ntt_ladder", "mont_mul")
 ROOFLINE_KERNELS = ("lerp",)
 
 # --------------------------------------------------------------------------
@@ -976,7 +996,240 @@ def phase_main_path(reps: int = 5) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# the sharded paths (zk_tpu_torch.parallel, GKRProver.prove(mesh=))
+# --------------------------------------------------------------------------
+
+
+def gkr_inputs(seed: int = 11) -> torch.Tensor:
+    """phase_gkr_main's witness: random limbs, top limb masked to 0x1FFF."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    inputs = torch.randint(0, 1 << 16, (FR.n_limbs, 1 << GKR_LOG), generator=gen, device=DEVICE, dtype=torch.int32)
+    inputs[FR.n_limbs - 1] &= 0x1FFF
+    return inputs
+
+
+def collectives_of(fn) -> tuple[dict[str, int], dict[str, int]]:
+    """(kernel launches, collectives) that fn() makes."""
+    before = par.collectives()
+    one = launches_of(fn)
+    return one, {k: v - before[k] for k, v in par.collectives().items()}
+
+
+def in_turns(fns: dict, reps: int) -> dict[str, list[float]]:
+    """Wall seconds of each fn, called in turns (order reversed every rep)."""
+    out = {k: [] for k in fns}
+    for i in range(reps):
+        for k in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+            out[k] += timed_runs(fns[k], 1)
+    return out
+
+
+def sharded_sumcheck(mesh, n: int, reps: int):
+    """The 2^n BLS12-381 table (seed 7) through ShardedSumcheckProver: the
+    round polys, challenges and proof bytes equal SumcheckProver's; warm
+    medians in turns; a device round's launches and collectives.  Returns
+    (proof bytes, {"sharded": [s], "single": [s]}, one sharded prove's
+    launches)."""
+    poly = main_table(n)
+    pp = ProductPoly([poly])
+    total = dev.decode_ints(FR, dev.sum_mod(FR, poly.data).reshape(-1, 1))[0]
+
+    def sharded():
+        return par.ShardedSumcheckProver.prove_partial(mesh, pp, total, max_var_degree=1)
+
+    single = SumcheckProver.prove_partial(pp, total, max_var_degree=1)
+    got = sharded()
+    if got != single or proof_to_bytes(FR, got[0]) != proof_to_bytes(FR, single[0]):
+        raise AssertionError(f"sharded 2^{n} prove_partial on {par.MeshGroup(mesh).size} rank(s) != SumcheckProver's")
+    one, coll = collectives_of(sharded)
+    D = par.MeshGroup(mesh).size
+    s = chain_rounds((1 << n) // D, 2, n)  # rounds on the shards (the card's tail rule), then one gather
+    # the shards' rounds end in one fold_multi; the gathered table's rounds end unfolded
+    want_one = {"transcript_round": n, "round_sums": 2, "fold_halfsums": n - 2, "fold_multi": 1}
+    want_coll = {"all_reduce": s, "all_gather": 1, "all_to_all": 0}
+    if one != want_one or coll != want_coll:
+        raise AssertionError(f"a sharded 2^{n} prove launched {one} and {coll}: want one transcript_round a "
+                             f"device round, one all_reduce and one table kernel a sharded round ({want_one}, {want_coll})")
+    fns = {"sharded": sharded}
+    if D == 1:
+        fns["single"] = lambda: SumcheckProver.prove_partial(pp, total, max_var_degree=1)
+    times = in_turns(fns, reps)
+    log(f"sharded prove_partial 2^{n} on {D} rank(s) == SumcheckProver's (round polys, challenges, bytes); "
+        + "; ".join(f"{k} {spread(v)}" for k, v in times.items()))
+    log(f"  one sharded prove: {one}; collectives {coll} ({s} rounds on the shards, {n - s} after the gather)")
+    return proof_to_bytes(FR, got[0]), times, one
+
+
+def sharded_gkr(mesh, reps: int):
+    """bench_gkr's 2 x 2^19 BLS12-381 circuit with a mesh: the bytes of the
+    device chain's proof; verified; warm medians in turns.  Returns (proof
+    bytes, times, one prove's launches)."""
+    c = bench_gkr_circuit(GKR_LOG)
+    inputs = gkr_inputs()
+    chain_bytes = gkr_proof_to_bytes(FR, GKRProver.prove(FR, c, inputs)[0])
+    proof, _ = GKRProver.prove(FR, c, inputs, mesh=mesh)
+    if gkr_proof_to_bytes(FR, proof) != chain_bytes:
+        raise AssertionError("GKR prove with a mesh != the device chain's proof")
+    D = par.MeshGroup(mesh).size
+    one, coll = collectives_of(lambda: GKRProver.prove(FR, c, inputs, mesh=mesh))
+    rounds = sum(2 * c.layer_k(i + 1) for i in range(c.depth))
+    shard_rounds = sum(2 * chain_rounds((1 << c.layer_k(i + 1)) // D, 2, c.layer_k(i + 1)) for i in range(c.depth))
+    want = {"all_reduce": shard_rounds, "all_gather": 2 * c.depth + c.depth, "all_to_all": 0}
+    if one.get("transcript_round") != rounds or one.get("keccak_f1600", 0) or coll != want:
+        raise AssertionError(f"a GKR prove with a mesh launched {one}, {coll}: want {rounds} transcript_round, "
+                             f"no keccak_f1600, {want}")
+    fns = {"mesh": lambda: GKRProver.prove(FR, c, inputs, mesh=mesh)}
+    if D == 1:
+        fns["chain"] = lambda: GKRProver.prove(FR, c, inputs)
+    times = in_turns(fns, reps)
+    if not GKRVerifier.verify(FR, c, inputs, proof):
+        raise AssertionError("GKR verifier rejected the proof made with a mesh")
+    log(f"GKR {c.depth} x 2^{GKR_LOG} BLS12-381 prove with a mesh of {D} == the device chain's bytes; verified; "
+        + "; ".join(f"{k} {spread(v)}" for k, v in times.items()))
+    log(f"  one GKR prove with a mesh: {one}; collectives {coll}")
+    return chain_bytes, times, one
+
+
+def sharded_ntt(mesh, reps: int) -> list[dict[str, int]]:
+    """The sharded 2^20 NTT in Goldilocks (bench_ntt's inputs) and
+    BLS12-381: equal to ntt_device, inverted, timed in turns.  Returns one
+    forward transform's launches per field."""
+    n = 1 << NTT_LOG
+    ones = []
+    g = GOLDILOCKS
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    for field, data in ((g, dev.encode_ints(g, [(i * 0x12345 + 7) % g.p for i in range(n)], device=DEVICE)),
+                        (FR, rand_limbs(FR, (FR.n_limbs, n), gen))):
+        fwd = par.gather_natural(mesh, field, par.ntt_sharded(mesh, field, data))
+        if not torch.equal(fwd, NTT.ntt_device(field, data)):
+            raise AssertionError(f"{field.name}: sharded 2^{NTT_LOG} NTT != ntt_device")
+        back = par.gather_natural(mesh, field, par.ntt_sharded(mesh, field, fwd, inverse=True))
+        if not torch.equal(back, data):
+            raise AssertionError(f"{field.name}: sharded inverse NTT does not return the input")
+        one, coll = collectives_of(lambda: par.ntt_sharded(mesh, field, data))
+        times = in_turns({"sharded": lambda: par.ntt_sharded(mesh, field, data)[:1, :1, :1].cpu(),
+                          "ntt_device": lambda: NTT.ntt_device(field, data)[:1, :1].cpu()}, reps)
+        log(f"sharded NTT 2^{NTT_LOG} {field.name} == ntt_device; inverse returns the input; "
+            + "; ".join(f"{k} {spread(v)}" for k, v in times.items()) + f"; one transform {one}, {coll}")
+        ones.append(one)
+    return ones
+
+
+def sharded_2pow26(mesh) -> None:
+    """One 2^26 BLS12-381 prove (a 4 GiB table) on the mesh, equal to the
+    single-device proof, its subclaim checked against the table."""
+    n = 26
+    poly = main_table(n)
+    pp = ProductPoly([poly])
+    total = dev.decode_ints(FR, dev.sum_mod(FR, poly.data).reshape(-1, 1))[0]
+    t0 = time.perf_counter()
+    proof, challenges = par.ShardedSumcheckProver.prove_partial(mesh, pp, total, max_var_degree=1)
+    t_sharded = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = SumcheckProver.prove_partial(pp, total, max_var_degree=1)
+    t_single = time.perf_counter() - t0
+    if (proof, challenges) != single:
+        raise AssertionError("sharded 2^26 prove != SumcheckProver's")
+    sub = SumcheckVerifier.verify_partial(FR, proof)
+    if sub.challenges != challenges or poly.evaluate(challenges) != sub.sum:
+        raise AssertionError("sharded 2^26 prove: the subclaim does not hold")
+    log(f"sharded prove_partial 2^26 BLS12-381 (4 GiB table): first call {t_sharded:.6f} s, single-device "
+        f"first call {t_single:.6f} s; == SumcheckProver's; subclaim checked; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del poly, pp
+    torch.cuda.empty_cache()
+
+
+def sharded_rank(rank: int, init_file: str, out_path: str) -> None:
+    """One rank of the world-size-2 gloo run on the one card: the 2^24
+    prove and the GKR prove with the mesh, each held against its
+    single-device proof in the rank; the digests go to out_path."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=2)
+    try:
+        mesh = par.make_mesh()
+        sc_bytes, sc_times, _ = sharded_sumcheck(mesh, MAIN_N, 3)
+        torch.cuda.empty_cache()
+        gkr_bytes, gkr_times, _ = sharded_gkr(mesh, 2)
+        with open(out_path, "w") as f:
+            json.dump({"sumcheck": hashlib.sha256(sc_bytes).hexdigest(), "sumcheck_times": sc_times,
+                       "gkr": hashlib.sha256(gkr_bytes).hexdigest(), "gkr_times": gkr_times}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(reps: int = 3) -> dict:
+    """The sharded paths at full width; returns their kernel launches at
+    world size 1: one sharded prove, one GKR prove with the mesh and one
+    forward sharded transform a field (the runs that compare them with
+    the single-device paths and time them are not counted)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init", rank=0, world_size=1)
+        try:
+            mesh = par.make_mesh()
+            sc_bytes, _, sc_one = sharded_sumcheck(mesh, MAIN_N, reps)
+            torch.cuda.empty_cache()
+            gkr_bytes, _, gkr_one = sharded_gkr(mesh, reps)
+            torch.cuda.empty_cache()
+            counts = dict.fromkeys(_cuda.KERNELS, 0)
+            for one in [sc_one, gkr_one] + sharded_ntt(mesh, reps):
+                for k, v in one.items():
+                    counts[k] += v
+            log(f"sharded paths (world size 1, NCCL) kernel launches: {counts}")
+            missing = [k for k in SHARDED_KERNELS if counts[k] == 0]
+            if missing:
+                raise AssertionError(f"the sharded paths never launched {missing}")
+            torch.cuda.reset_peak_memory_stats()
+            sharded_2pow26(mesh)
+        finally:
+            dist.destroy_process_group()
+    phase_sharded_gloo(hashlib.sha256(sc_bytes).hexdigest(), hashlib.sha256(gkr_bytes).hexdigest())
+    return counts
+
+
+def phase_sharded_gloo(want_sc: str, want_gkr: str) -> None:
+    """World size 2 over gloo on the one card: two ranks, each proving the
+    2^24 table and the GKR circuit through the mesh; both exit 0 and give
+    the single-device bytes, or the phase fails."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-rank", str(r),
+                                   os.path.join(tmp, "init"), outs[r]], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            log(f"  gloo rank {r} (exit {p.returncode}): " + " | ".join(out.strip().splitlines()[-6:]))
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError(f"the world-size-2 gloo run failed: exit codes {[p.returncode for p in procs]}")
+        got = []
+        for out in outs:
+            with open(out) as f:
+                got.append(json.load(f))
+    if any((g["sumcheck"], g["gkr"]) != (want_sc, want_gkr) for g in got):
+        raise AssertionError("world-size-2 gloo proofs differ from the single-device proofs")
+    log(f"world size 2 over gloo on one card: both ranks' 2^{MAIN_N} sumcheck and GKR proofs == the single-device "
+        f"proofs; rank 0 sumcheck {spread(got[0]['sumcheck_times']['sharded'])}; GKR "
+        f"{spread(got[0]['gkr_times']['mesh'])}")
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sharded_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return 0
     name = phase_device()
     timed = phase_kernels()
     timed.update(phase_gkr_kernels())
@@ -987,6 +1240,7 @@ def main() -> int:
     counts = phase_main_path()
     gkr_counts = phase_gkr_main()
     ntt_counts = phase_ntt_main()
+    sharded_counts = phase_sharded()
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():
         res = timed[kname]
@@ -994,7 +1248,7 @@ def main() -> int:
                        else ntt_counts if kname in NTT_KERNELS else roofline_counts)
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": path_counts[kname], "max_abs_err": res["err"],
+            "launches": path_counts[kname], "sharded_launches": sharded_counts[kname], "max_abs_err": res["err"],
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
             # no single PyTorch call folds, sums or multiplies Montgomery limbs,

@@ -2,7 +2,7 @@
 
 Run from the repository root on a card:
 
-    python3 scripts/profile_ntt.py [--log 20] [--reps 5] [--mle]
+    python3 scripts/profile_ntt.py [--log 20] [--reps 5] [--mle] [--prove] [--sharded]
 
 For chip_smoke.py's phase 6 inputs (bench.py bench_ntt's Goldilocks
 values (i * 0x12345 + 7) mod p, and random BLS12-381 Fr limbs from a
@@ -21,7 +21,11 @@ time into encoding the point, enqueueing the folds, waiting for the card
 and decoding the value.  With ``--prove`` it does the same for
 chip_smoke.py's warm 2^24 BLS12-381 ``prove_partial`` (degree 1, the
 device transcript): its walls, and under the profiler its device ops,
-busy share and kernels.
+busy share and kernels.  With ``--sharded`` it does the same for
+``ShardedSumcheckProver.prove_partial`` of that table on a world-size-1
+NCCL mesh, with the single-device prove's walls taken in the same turns,
+and prints the profile's largest host-side ops (the collectives' cost is
+host time).
 
 The card's name and power limit come first, as nvidia-smi reports them.
 """
@@ -90,12 +94,55 @@ def profile_prove(reps: int, n: int = 24) -> None:
     profiled(prove, f"profile, prove_partial 2^{n}")
 
 
+def profile_sharded(reps: int, n: int = 24) -> None:
+    """The warm 2^24 BLS12-381 prove_partial on a world-size-1 NCCL mesh:
+    walls in turns with the single-device prove, a profile, and its
+    largest host ops."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from zk_tpu_torch.parallel import ShardedSumcheckProver, make_mesh
+
+    poly = main_table(n)
+    field = poly.field
+    total = dev.decode_ints(field, dev.sum_mod(field, poly.data).reshape(-1, 1))[0]
+    pp = ProductPoly([poly])
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init", rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            fns = {
+                "single": lambda: SumcheckProver.prove_partial(pp, total, max_var_degree=1),
+                "sharded": lambda: ShardedSumcheckProver.prove_partial(mesh, pp, total, max_var_degree=1),
+            }
+            runs = {k: [] for k in fns}
+            for i in range(reps):
+                for k in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+                    runs[k].append(synced(fns[k])[1])
+            for k, v in runs.items():
+                print(f"{k} prove_partial 2^{n}: median {statistics.median(v):.6f} s, min {min(v):.6f} s, "
+                      f"max {max(v):.6f} s over {reps} (in turns)", flush=True)
+            profiled(fns["sharded"], f"profile, sharded prove_partial 2^{n}")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fns["sharded"]()
+                torch.cuda.synchronize()
+            host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
+            for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+                print(f"    host {e.self_cpu_time_total / 1e3:10.3f} ms  x{e.count:<6d} {e.key[:80]}", flush=True)
+        finally:
+            dist.destroy_process_group()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log", type=int, default=20, help="log2 of the transform length")
     ap.add_argument("--reps", type=int, default=5, help="warm roundtrips per field")
     ap.add_argument("--mle", action="store_true", help="also profile the warm 2^24 MLE.evaluate")
     ap.add_argument("--prove", action="store_true", help="also profile the warm 2^24 prove_partial")
+    ap.add_argument("--sharded", action="store_true",
+                    help="also profile the warm 2^24 prove_partial on a world-size-1 NCCL mesh")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this profile runs only on a GPU")
@@ -121,6 +168,8 @@ def main() -> int:
         profile_mle(args.reps)
     if args.prove:
         profile_prove(args.reps)
+    if args.sharded:
+        profile_sharded(args.reps)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     print(f"after the runs: {smi}", flush=True)

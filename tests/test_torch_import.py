@@ -34,7 +34,9 @@ def test_import_leaves_jax_out():
         "import zk_tpu_torch\n"
         "for m in pkgutil.walk_packages(zk_tpu_torch.__path__, 'zk_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "for m in ('zk_tpu_torch.gkr.chain', 'zk_tpu_torch.ntt', 'zk_tpu_torch.fields.kernels'):\n"
+        "for m in ('zk_tpu_torch.gkr.chain', 'zk_tpu_torch.ntt', 'zk_tpu_torch.fields.kernels',\n"
+        "          'zk_tpu_torch.parallel', 'zk_tpu_torch.parallel.sumcheck', 'zk_tpu_torch.parallel.ntt',\n"
+        "          'zk_tpu_torch.poly.coeff_mle', 'zk_tpu_torch.poly.pairing_index', 'zk_tpu_torch.utils.stat'):\n"
         "    assert m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'zk_tpu') or m.startswith(('jax', 'zk_tpu.')))\n"
         "assert not bad, bad\n"

@@ -15,6 +15,9 @@ so its ``ntt`` attribute is that function; the module is
 ``importlib.import_module("zk_tpu_torch.ntt")`` (or ``from
 zk_tpu_torch.ntt import ...``).
 
+``zk_tpu_torch.parallel`` runs the sumcheck prover, the NTT and the GKR
+prover sharded over a ``torch.distributed`` mesh, with the same proofs.
+
 This package imports torch and numpy and nothing of ``zk_tpu`` or JAX.
 Importing it builds nothing: the kernels are compiled with nvcc at first
 use (``zk_tpu_torch._cuda``), the host Keccak with the C compiler at the

@@ -75,6 +75,10 @@ class Field:
     def pow(self, a: int, e: int) -> int:
         return pow(a, e, self.p)
 
+    def from_int(self, a: int) -> int:
+        """Canonicalize an arbitrary (possibly negative) int into [0, p)."""
+        return a % self.p
+
     # -------------------------------------------------------- serialization
 
     def to_bytes_be(self, a: int) -> bytes:
@@ -100,6 +104,23 @@ class Field:
         if log_n > self.two_adicity:
             raise ValueError(f"{self.name} has 2-adicity {self.two_adicity}; no 2^{log_n} root")
         return pow(self.two_adic_root, 1 << (self.two_adicity - log_n), self.p)
+
+    # -------------------------------------------------------- limb conversion
+
+    def to_limbs(self, a: int) -> list[int]:
+        """Canonical int -> its n_limbs base-2^16 limbs, little-endian."""
+        a %= self.p
+        return [(a >> (LIMB_BITS * i)) & LIMB_MASK for i in range(self.n_limbs)]
+
+    def from_limbs(self, limbs) -> int:
+        """Base-2^16 limbs, little-endian (any int-like values) -> int mod p."""
+        return sum(int(limb) << (LIMB_BITS * i) for i, limb in enumerate(limbs)) % self.p
+
+    def to_mont(self, a: int) -> int:
+        return (a * self.R) % self.p
+
+    def from_mont(self, a: int) -> int:
+        return (a * pow(self.R, -1, self.p)) % self.p
 
     def __repr__(self):
         return f"Field({self.name}, {self.bits} bits)"

@@ -18,13 +18,15 @@ transcript -> w_b, w_c bytes -> q evals bytes -> sample r*].
 
 Provers: the device-resident chain (``gkr.chain``, one host sync per
 prove) by default on the card for p > 2^32; the per-phase prover (its
-sumchecks in any tier of ``SumcheckProver``) otherwise or with
-``device_transcript=False``; ``prove_dense``, the O(4^k) differential
-oracle.  All three give the same bytes.
+sumchecks in any tier of ``SumcheckProver``) otherwise, with
+``device_transcript=False``, or over a mesh (``ShardedSumcheckProver``);
+``prove_dense``, the O(4^k) differential oracle.  All give the same
+bytes.  The stages are wrapped in ``utils.timer`` (PERF_LOG=true).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from dataclasses import field as dc_field
 
@@ -34,6 +36,7 @@ from zk_tpu_torch.fields import device as dev
 from zk_tpu_torch.fields.field import Field
 from zk_tpu_torch.gkr import device as gdev
 from zk_tpu_torch.gkr.circuit import ADD, MUL, Circuit, Gate  # noqa: F401
+from zk_tpu_torch.parallel import ShardedSumcheckProver
 from zk_tpu_torch.poly.hypercube import binary_string
 from zk_tpu_torch.poly.mle import MLE
 from zk_tpu_torch.poly.product import ProductPoly, SumOfProducts
@@ -46,6 +49,7 @@ from zk_tpu_torch.sumcheck import (
     proof_to_bytes,
 )
 from zk_tpu_torch.transcript import Transcript
+from zk_tpu_torch.utils import timer
 
 
 class GKRError(Exception):
@@ -159,6 +163,7 @@ class GKRProver:
         tail_size: int | None = None,
         device_transcript: bool | None = None,
         device=None,
+        mesh=None,
     ) -> tuple[GKRProof, list[torch.Tensor]]:
         """Prove circuit(inputs) = outputs; returns (proof, device wire
         levels).  ``inputs``: host ints, encoded onto ``device`` (the card
@@ -166,13 +171,20 @@ class GKRProver:
         whose device is used.  The device-resident chain runs by default
         on CUDA for p > 2^32 (or where device_transcript=True); the
         per-phase prover otherwise, its two sumchecks per layer in the
-        tiers of ``SumcheckProver``."""
+        tiers of ``SumcheckProver``.
+
+        With a mesh (every rank calling with the same arguments) the
+        per-phase prover runs: the witness is gate-sharded and every phase
+        sumcheck over at least 2 x mesh-size entries runs through
+        ``ShardedSumcheckProver``; smaller ones run single-device, as the
+        reference's.  The proof bytes are the single-device proof's."""
         d = inputs.device if isinstance(inputs, torch.Tensor) else dev.resolve_device(device)
         big_field = field.p > (1 << 32)
         if device_transcript is None:
             device_transcript = d.type == "cuda" and big_field
         if (
-            device_transcript
+            mesh is None
+            and device_transcript
             and big_field
             and tail_size is None
             and all(circuit.layer_k(i + 1) >= 1 for i in range(circuit.depth))
@@ -181,33 +193,45 @@ class GKRProver:
 
             return prove_chain(field, circuit, inputs, d)
 
-        levels = gdev.evaluate_device(circuit, field, inputs, d)
-        nb, n_out = field.n_bytes, len(circuit.layers[0])
-        out_bytes = dev.decode_bytes_be(field, levels[0])[: n_out * nb]
-        outputs = [int.from_bytes(out_bytes[i * nb : (i + 1) * nb], "big") for i in range(n_out)]
+        with timer("gkr witness (device circuit eval)"):
+            levels = gdev.evaluate_device(circuit, field, inputs, d, mesh=mesh)
+            nb, n_out = field.n_bytes, len(circuit.layers[0])
+            out_bytes = dev.decode_bytes_be(field, levels[0])[: n_out * nb]
+            outputs = [int.from_bytes(out_bytes[i * nb : (i + 1) * nb], "big") for i in range(n_out)]
 
         transcript = Transcript()
-        transcript.append(out_bytes)
-        r = transcript.sample_n_field_elements(field, circuit.layer_k(0))
-        m = dev.decode_ints(field, gdev.mle_eval_points(field, levels[0], [r]))[0]
+        with timer("gkr bind outputs + r0"):
+            transcript.append(out_bytes)
+            r = transcript.sample_n_field_elements(field, circuit.layer_k(0))
+            m = dev.decode_ints(field, gdev.mle_eval_points(field, levels[0], [r]))[0]
 
         tiers = dict(max_var_degree=2, tail_size=tail_size, device_transcript=device_transcript)
         layer_proofs: list[LayerProof] = []
         for i in range(circuit.depth):
             k_in = circuit.layer_k(i + 1)
             w_dev = levels[i + 1]
-            eq_r = gdev.eq_table(field, r, d)
+            if mesh is not None and (1 << k_in) >= 2 * mesh.size():
+                prove_phase = functools.partial(ShardedSumcheckProver._prove_internal, mesh)
+            else:
+                prove_phase = SumcheckProver._prove_internal
+            with timer(f"layer {i} eq_r table"):
+                eq_r = gdev.eq_table(field, r, d)
 
             # phase 1: sum over b of G1(b) W(b) + A2(b); binds the claim
-            poly1 = gdev.build_phase1(field, circuit, i, eq_r, w_dev)
-            proof1, u = SumcheckProver._prove_internal(poly1, m, transcript, **tiers)
+            with timer(f"layer {i} phase1 tables"):
+                poly1 = gdev.build_phase1(field, circuit, i, eq_r, w_dev)
+            with timer(f"layer {i} phase1 sumcheck"):
+                proof1, u = prove_phase(poly1, m, transcript, **tiers)
             m2 = UnivariatePolynomial.interpolate(field, proof1.round_polys[-1]).evaluate(u[-1]) if u else m
 
             # phase 2: sum over c with b fixed at u (the claim is bound)
-            poly2, _ = gdev.build_phase2(field, circuit, i, eq_r, u, w_dev)
-            proof2, v = SumcheckProver._prove_internal(poly2, m2, transcript, bind_sum=False, **tiers)
+            with timer(f"layer {i} phase2 tables"):
+                poly2, _ = gdev.build_phase2(field, circuit, i, eq_r, u, w_dev)
+            with timer(f"layer {i} phase2 sumcheck"):
+                proof2, v = prove_phase(poly2, m2, transcript, bind_sum=False, **tiers)
 
-            q_evals = gdev.line_restriction_evals(field, w_dev, u, v)
+            with timer(f"layer {i} line restriction evals"):
+                q_evals = gdev.line_restriction_evals(field, w_dev, u, v)
             w_b, w_c = q_evals[0], q_evals[min(1, k_in)]
             transcript.append(field.elements_to_bytes([w_b, w_c]))
             r, m_next = _layer_claims(field, transcript, u, v, q_evals)

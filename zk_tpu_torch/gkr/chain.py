@@ -32,6 +32,7 @@ from zk_tpu_torch.poly.mle import fold_var0
 from zk_tpu_torch.sumcheck import capacity as C
 from zk_tpu_torch.transcript import Transcript
 from zk_tpu_torch.transcript import device as tdev
+from zk_tpu_torch.utils import timer
 
 
 def _bind(field: Field, pos: int, lo, hi, buf, m_mont):
@@ -98,60 +99,65 @@ def prove_chain(field: Field, circuit, inputs, device=None):
     from zk_tpu_torch.sumcheck import SumcheckProof
 
     nb, L = field.n_bytes, field.n_limbs
-    levels = gdev.evaluate_device(circuit, field, inputs, device)
-    d = levels[0].device
-    n_out = len(circuit.layers[0])
-    out_bytes = dev.decode_bytes_be(field, levels[0])[: n_out * nb]  # a host sync
+    with timer("gkr witness (device circuit eval + output fetch)"):
+        levels = gdev.evaluate_device(circuit, field, inputs, device)
+        d = levels[0].device
+        n_out = len(circuit.layers[0])
+        out_bytes = dev.decode_bytes_be(field, levels[0])[: n_out * nb]  # a host sync
 
     transcript = Transcript()
-    transcript.append(out_bytes)
-    r = transcript.sample_n_field_elements(field, circuit.layer_k(0))
-    m_mont = gdev.mle_eval_points(field, levels[0], [r])  # (L, 1)
-    lo, hi, buf, pos = tdev.state_to_device(*transcript.export_state(), d)
-    r_kl = gdev._mont_rs(field, r, d)
+    with timer("gkr bind outputs + r0"):
+        transcript.append(out_bytes)
+        r = transcript.sample_n_field_elements(field, circuit.layer_k(0))
+        m_mont = gdev.mle_eval_points(field, levels[0], [r])  # (L, 1)
+        lo, hi, buf, pos = tdev.state_to_device(*transcript.export_state(), d)
+        r_kl = gdev._mont_rs(field, r, d)
 
     per_layer = []  # (claim m, round sums, canonical q_evals), on the device
-    for i in range(circuit.depth):
-        eq_r = gdev._eq_expand(field, r_kl)
-        w_dev = levels[i + 1]
+    with timer("gkr layer chain (async dispatches)"):
+        for i in range(circuit.depth):
+            eq_r = gdev._eq_expand(field, r_kl)
+            w_dev = levels[i + 1]
 
-        # phase 1 over b: bind m, then G1(b) W(b) + A2(b)
-        g1, a2 = gdev.phase1_tables(field, circuit, i, eq_r, w_dev)
-        m_layer = m_mont
-        lo, hi, buf, pos = _bind(field, pos, lo, hi, buf, m_layer)
-        sums1, u_lk, lo, hi, buf = _run_phase(field, (2, 1), [g1, w_dev, a2], pos, lo, hi, buf)
+            # phase 1 over b: bind m, then G1(b) W(b) + A2(b)
+            g1, a2 = gdev.phase1_tables(field, circuit, i, eq_r, w_dev)
+            m_layer = m_mont
+            lo, hi, buf, pos = _bind(field, pos, lo, hi, buf, m_layer)
+            sums1, u_lk, lo, hi, buf = _run_phase(field, (2, 1), [g1, w_dev, a2], pos, lo, hi, buf)
 
-        # phase 2 over c, b fixed at u (the claim is already bound)
-        eq_u = gdev._eq_expand(field, u_lk.t())
-        wu = fold_var0(field, w_dev, u_lk)
-        add_u, mul_u_s, w_shift = gdev.phase2_tables(field, circuit, i, eq_r, eq_u, w_dev, wu)
-        sums2, v_lk, lo, hi, buf = _run_phase(field, (2, 2), [add_u, w_shift, mul_u_s, w_dev], 32, lo, hi, buf)
+            # phase 2 over c, b fixed at u (the claim is already bound)
+            eq_u = gdev._eq_expand(field, u_lk.t())
+            wu = fold_var0(field, w_dev, u_lk)
+            add_u, mul_u_s, w_shift = gdev.phase2_tables(field, circuit, i, eq_r, eq_u, w_dev, wu)
+            sums2, v_lk, lo, hi, buf = _run_phase(field, (2, 2), [add_u, w_shift, mul_u_s, w_dev], 32, lo, hi, buf)
 
-        # line restriction, r*, and the next layer's (r, m)
-        lo, hi, buf, q_canon, r_kl, m_mont = _line_step(field, 32, lo, hi, buf, w_dev, u_lk, v_lk)
-        pos = 32
-        per_layer.append((m_layer, torch.stack(sums1 + sums2), q_canon))
-        del g1, a2, add_u, mul_u_s, w_shift, eq_r, eq_u
+            # line restriction, r*, and the next layer's (r, m)
+            lo, hi, buf, q_canon, r_kl, m_mont = _line_step(field, 32, lo, hi, buf, w_dev, u_lk, v_lk)
+            pos = 32
+            per_layer.append((m_layer, torch.stack(sums1 + sums2), q_canon))
+            del g1, a2, add_u, mul_u_s, w_shift, eq_r, eq_u
 
-    outputs = [int.from_bytes(out_bytes[i * nb : (i + 1) * nb], "big") for i in range(n_out)]
+    with timer("gkr parse outputs (overlaps device drain)"):
+        outputs = [int.from_bytes(out_bytes[i * nb : (i + 1) * nb], "big") for i in range(n_out)]
 
     # the one sync: every proof component
-    parts = [t for layer in per_layer for t in layer]
-    flat = torch.cat([t.reshape(-1).long() for t in parts]).cpu()
-    got = iter(torch.split(flat, [t.numel() for t in parts]))
-    layer_proofs = []
-    for i in range(circuit.depth):
-        m_h, sums_h, q_h = next(got), next(got), next(got)
-        k_in = circuit.layer_k(i + 1)
-        sums_h = sums_h.reshape(2 * k_in, L, 3)
-        q_evals = dev.decode_ints(field, q_h.reshape(L, k_in + 1), mont=False)
-        layer_proofs.append(LayerProof(
-            sumcheck=SumcheckProof(
-                sum=dev.decode_ints(field, m_h.reshape(L, 1))[0],
-                round_polys=[dev.decode_ints(field, s, mont=False) for s in sums_h],
-            ),
-            w_b=q_evals[0],
-            w_c=q_evals[1],
-            q_evals=q_evals,
-        ))
+    with timer("gkr final sync + proof assembly"):
+        parts = [t for layer in per_layer for t in layer]
+        flat = torch.cat([t.reshape(-1).long() for t in parts]).cpu()
+        got = iter(torch.split(flat, [t.numel() for t in parts]))
+        layer_proofs = []
+        for i in range(circuit.depth):
+            m_h, sums_h, q_h = next(got), next(got), next(got)
+            k_in = circuit.layer_k(i + 1)
+            sums_h = sums_h.reshape(2 * k_in, L, 3)
+            q_evals = dev.decode_ints(field, q_h.reshape(L, k_in + 1), mont=False)
+            layer_proofs.append(LayerProof(
+                sumcheck=SumcheckProof(
+                    sum=dev.decode_ints(field, m_h.reshape(L, 1))[0],
+                    round_polys=[dev.decode_ints(field, s, mont=False) for s in sums_h],
+                ),
+                w_b=q_evals[0],
+                w_c=q_evals[1],
+                q_evals=q_evals,
+            ))
     return GKRProof(outputs=outputs, layer_proofs=layer_proofs, outputs_bytes=out_bytes), levels

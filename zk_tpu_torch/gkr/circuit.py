@@ -156,3 +156,7 @@ class Circuit:
             cur = vals
             levels[i] = vals + [0] * ((1 << _k_for(len(vals))) - len(vals))
         return levels
+
+    def outputs(self, field: Field, inputs: list[int]) -> list[int]:
+        """The output layer's values (host ints, unpadded)."""
+        return self.evaluate(field, inputs)[0][: len(self.layers[0])]

@@ -19,8 +19,7 @@ The round polynomials equal the dense O(4^k) prover's (``GKRProver.
 prove_dense``).  A wiring table is a scatter-add: an int64 ``index_add_``
 of raw limbs, then one renormalisation (``fields.device.renorm_relaxed``),
 exact in any order; it gives the same integers as both of the reference's
-strategies (its scatter and its fan-in gather plan).  The mesh branch of
-the reference's witness evaluation is not ported (sharding comes later).
+strategies (its scatter and its fan-in gather plan).
 """
 
 from __future__ import annotations
@@ -29,6 +28,8 @@ import torch
 
 from zk_tpu_torch.fields import device as dev
 from zk_tpu_torch.fields.field import Field
+from zk_tpu_torch.fields.kernels import mont_mul
+from zk_tpu_torch.parallel.mesh import MeshGroup
 from zk_tpu_torch.poly.mle import MLE, fold_var0
 from zk_tpu_torch.poly.product import ProductPoly, SumOfProducts
 
@@ -133,14 +134,39 @@ def _layer_eval(field: Field, pad_to: int, cur, left, right, is_add) -> torch.Te
     return torch.nn.functional.pad(vals, (0, pad_to - vals.shape[-1]))
 
 
-def evaluate_device(circuit, field: Field, inputs, device=None) -> list[torch.Tensor]:
+def _layer_eval_sharded(field: Field, group, pad_to: int, cur, circuit, layer: int) -> torch.Tensor:
+    """One circuit layer over a mesh: this rank evaluates the gates
+    [d pad_to/D, (d+1) pad_to/D) of the wiring padded to pad_to (padded
+    slots masked to zero, as _layer_eval's padding), and one
+    ``all_gather`` re-replicates the level for the next layer's gathers."""
+    key = ("sharded", layer, group.size, group.index, cur.device)
+    wired = circuit._dev_cache.get(key)
+    if wired is None:
+        left, right, is_add = circuit.device_wiring(layer, "cpu")
+        chunk = pad_to // group.size
+        gate = torch.arange(group.index * chunk, (group.index + 1) * chunk)
+        valid = gate < left.shape[0]
+        gate = torch.where(valid, gate, 0)  # padded slots evaluate gate 0, then are masked
+        wired = tuple(a.to(cur.device) for a in (left[gate], right[gate], is_add[gate], valid))
+        circuit._dev_cache[key] = wired
+    left, right, is_add, valid = wired
+    lv, rv = cur[:, left], cur[:, right]
+    vals = torch.where(is_add, dev.add_mod(field, lv, rv), mont_mul(field, lv, rv))
+    vals = torch.where(valid, vals, torch.zeros_like(vals))
+    return group.all_gather(vals).permute(1, 0, 2).reshape(field.n_limbs, pad_to)
+
+
+def evaluate_device(circuit, field: Field, inputs, device=None, mesh=None) -> list[torch.Tensor]:
     """Wire values per level as (L, 2^k) Montgomery tensors, output level
     first (the device analogue of Circuit.evaluate, the same padding).
 
     ``inputs`` is a list of host ints, encoded onto ``device`` (the card
     unless another is named), or an (L, n_inputs) Montgomery limb tensor,
     whose device is used: a witness already on the card never crosses the
-    host link."""
+    host link.  With a mesh (every rank calling with the same inputs),
+    each layer whose padded width divides across the mesh is
+    gate-sharded, one ``all_gather`` a layer; the values are the
+    single-device ones."""
     pad_to = 1 << circuit.layer_k(circuit.depth)
     if isinstance(inputs, torch.Tensor):
         if tuple(inputs.shape) != (field.n_limbs, circuit.n_inputs):
@@ -154,10 +180,15 @@ def evaluate_device(circuit, field: Field, inputs, device=None) -> list[torch.Te
             raise ValueError("wrong number of inputs")
         padded = list(inputs) + [0] * (pad_to - len(inputs))
         cur = dev.encode_ints(field, padded, device=dev.resolve_device(device))
+    group = None if mesh is None else MeshGroup(mesh)
     levels: list = [None] * (circuit.depth + 1)
     levels[circuit.depth] = cur
     for i in range(circuit.depth - 1, -1, -1):
-        cur = _layer_eval(field, 1 << circuit.layer_k(i), cur, *circuit.device_wiring(i, cur.device))
+        pad_to = 1 << circuit.layer_k(i)
+        if group is not None and pad_to % group.size == 0:
+            cur = _layer_eval_sharded(field, group, pad_to, cur, circuit, i)
+        else:
+            cur = _layer_eval(field, pad_to, cur, *circuit.device_wiring(i, cur.device))
         levels[i] = cur
     return levels
 

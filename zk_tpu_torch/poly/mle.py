@@ -85,6 +85,12 @@ class MLE:
         data[L - 1] &= (1 << top) - 1
         return cls(field, n_vars, data)
 
+    @classmethod
+    def from_coeff(cls, coeff_poly, device=None) -> "MLE":
+        """From a CoeffMultilinearPolynomial through the hypercube walk
+        (host ints); on the card unless ``device`` names another."""
+        return cls.new(coeff_poly.field, coeff_poly.n_vars, coeff_poly.to_evaluation_form(), device=device)
+
     def partial_evaluate(self, initial_var: int, assignments: list[int]) -> "MLE":
         """Fix len(assignments) consecutive variables starting at
         initial_var (evaluation_form.rs:40-80)."""
@@ -112,6 +118,17 @@ class MLE:
     def to_bytes(self) -> bytes:
         """Concat of canonical BE bytes (evaluation_form.rs:97-103)."""
         return dev.decode_bytes_be(self.field, self.data)
+
+    def __eq__(self, other) -> bool:
+        """Same field, same n_vars, equal limbs (the tables' values; both
+        are canonical Montgomery representatives)."""
+        if not isinstance(other, MLE):
+            return NotImplemented
+        return (
+            self.field.p == other.field.p
+            and self.n_vars == other.n_vars
+            and torch.equal(self.data, other.data.to(self.data.device))
+        )
 
     def __repr__(self):
         return f"MLE({self.field.name}, n_vars={self.n_vars})"

@@ -8,7 +8,11 @@ the factor tables.
 
 from __future__ import annotations
 
+import torch
+
+from zk_tpu_torch.fields import device as dev
 from zk_tpu_torch.fields.field import Field
+from zk_tpu_torch.fields.kernels import mont_mul
 from zk_tpu_torch.poly.mle import MLE
 
 
@@ -37,6 +41,26 @@ class ProductPoly:
             out = self.field.mul(out, poly.evaluate(assignments))
         return out
 
+    def partial_evaluate(self, initial_var: int, assignments: list[int]) -> "ProductPoly":
+        """Member-wise partial evaluation (product_poly.rs:48-63)."""
+        return ProductPoly([p.partial_evaluate(initial_var, assignments) for p in self.polynomials])
+
+    def prod_reduce(self) -> torch.Tensor:
+        """Elementwise product of the member tables (product_poly.rs:66-74)
+        as (L, 2^n) Montgomery limbs on the factors' device (the
+        ``mont_mul`` kernel on the card)."""
+        result = self.polynomials[0].data
+        for poly in self.polynomials[1:]:
+            result = mont_mul(self.field, result, poly.data)
+        return result
+
+    def prod_reduce_ints(self) -> list[int]:
+        return dev.decode_ints(self.field, self.prod_reduce())
+
+    def stacked(self) -> torch.Tensor:
+        """Factor tables stacked as (k, L, 2^n)."""
+        return torch.stack([p.data for p in self.polynomials])
+
     @property
     def max_degree(self) -> int:
         """Per-variable degree bound = number of factors."""
@@ -45,6 +69,15 @@ class ProductPoly:
     def to_bytes(self) -> bytes:
         """Concat of member to_bytes (product_poly.rs:77-83)."""
         return b"".join(p.to_bytes() for p in self.polynomials)
+
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, ProductPoly):
+            return NotImplemented
+        return (
+            self.n_vars == other.n_vars
+            and len(self.polynomials) == len(other.polynomials)
+            and all(a == b for a, b in zip(self.polynomials, other.polynomials))
+        )
 
 
 class SumOfProducts:
@@ -67,6 +100,16 @@ class SumOfProducts:
         for t in self.terms:
             out = self.field.add(out, t.evaluate(assignments))
         return out
+
+    def partial_evaluate(self, initial_var: int, assignments: list[int]) -> "SumOfProducts":
+        return SumOfProducts([t.partial_evaluate(initial_var, assignments) for t in self.terms])
+
+    def sum_reduce(self) -> torch.Tensor:
+        """Sum over the terms of prod_reduce: (L, 2^n) Montgomery limbs."""
+        acc = self.terms[0].prod_reduce()
+        for t in self.terms[1:]:
+            acc = dev.add_mod(self.field, acc, t.prod_reduce())
+        return acc
 
     def to_bytes(self) -> bytes:
         return b"".join(t.to_bytes() for t in self.terms)

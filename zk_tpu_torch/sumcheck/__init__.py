@@ -161,20 +161,14 @@ class SumcheckProver:
                     round_polys, challenges,
                 )
             else:
-                host_tables = SumcheckProver._synced_rounds(
+                table = SumcheckProver._synced_rounds(
                     field, degree, ks, stack, n_vars, tail, transcript, round_polys, challenges
                 )
+                host_tables = None if table is None else _decode_host_tables(field, ks, table)
 
-        for _ in range(n_vars - len(challenges)):
-            if host_tables is None:
-                host_tables = K.HostTables(field, [[dev.decode_ints(field, t) for t in term] for term in terms])
-            round_poly = host_tables.round_sums(degree)
-            transcript.append(field.elements_to_bytes(round_poly))
-            challenge = transcript.sample_field_element(field)
-            host_tables = host_tables.fold(challenge)
-            round_polys.append(round_poly)
-            challenges.append(challenge)
-
+        if len(challenges) < n_vars and host_tables is None:
+            host_tables = K.HostTables(field, [[dev.decode_ints(field, t) for t in term] for term in terms])
+        host_rounds(field, degree, host_tables, n_vars, transcript, round_polys, challenges)
         return SumcheckProof(sum=sum, round_polys=round_polys), challenges
 
     @staticmethod
@@ -186,46 +180,33 @@ class SumcheckProver:
         to 128 elements finish on host ints, as in the reference (there a
         device round is hundreds of small torch ops, dearer than the host
         tail's bigint products).  An explicit tail_size wins."""
-        lanes, pend = transcript.export_state()
-        lo, hi, buf, pos = tdev.state_to_device(lanes, pend, stack.device)
+        lo, hi, buf, pos = tdev.state_to_device(*transcript.export_state(), stack.device)
         if default_tail:
             chain_tail = 1 if stack.device.type == "cuda" else min(128, tail)
         else:
             chain_tail = tail
-        rounds, size = 0, stack.shape[-1]
-        while size > chain_tail and rounds < n_vars:
-            rounds += 1
-            size //= 2
-        fold_last = rounds < n_vars  # the host tail continues from the table
+        rounds = chain_rounds(stack.shape[-1], chain_tail, n_vars)
         sums, chs, _, lo, hi, buf, table = C.run_device_rounds(
-            field, degree, ks, stack, rounds, pos, fold_last, lo, hi, buf
+            field, degree, ks, stack, rounds, pos, rounds < n_vars, lo, hi, buf
         )
-        L = field.n_limbs
-        parts = [torch.stack(sums), torch.stack(chs), lo, hi, buf]
-        if fold_last:
-            parts.append(table)
-        flat = torch.cat([t.reshape(-1).long() for t in parts]).cpu()  # the one sync
-        got = list(torch.split(flat, [t.numel() for t in parts]))
-        got_sums = got[0].reshape(rounds, L, degree + 1)
-        got_chs = got[1].reshape(rounds, L, 1)
-        for total, ch in zip(got_sums, got_chs):
-            round_polys.append(dev.decode_ints(field, total, mont=False))
-            challenges.append(dev.decode_ints(field, ch, mont=False)[0])
-        transcript.import_state(*tdev.state_to_host(got[2], got[3], got[4], 32))
-        if not fold_last:
-            return None
-        return _decode_host_tables(field, ks, got[5].reshape(-1, L, size))
+        return read_device_rounds(
+            field, degree, ks, sums, chs, lo, hi, buf, table if rounds < n_vars else None,
+            transcript, round_polys, challenges,
+        )
 
     @staticmethod
-    def _synced_rounds(field, degree, ks, stack, n_vars, tail, transcript, round_polys, challenges):
+    def _synced_rounds(field, degree, ks, stack, n_vars, tail, transcript, round_polys, challenges, reduce=None):
         """Per-round-synced tier: the same table kernels, with the round
-        sums read back and absorbed by the host Transcript every round."""
+        sums read back and absorbed by the host Transcript every round,
+        while the table is larger than ``tail``.  Returns the live table
+        (None once every round is done).  ``reduce`` as in
+        ``capacity.run_device_rounds``."""
         size = stack.shape[-1]
         deg1 = (degree, ks) == (1, (1,))
         acc = C.term_sums(field, degree, ks, stack, size)
         owned = not deg1  # a degree-1 prove's first fold writes a fresh buffer
         while size > tail:
-            round_poly = K.decode_sums(field, acc)
+            round_poly = K.decode_sums(field, acc if reduce is None else reduce(acc))
             transcript.append(field.elements_to_bytes(round_poly))
             challenge = transcript.sample_field_element(field)
             round_polys.append(round_poly)
@@ -242,7 +223,50 @@ class SumcheckProver:
                     acc = C.term_sums(field, degree, ks, stack, size // 2)
             owned = True
             size //= 2
-        return _decode_host_tables(field, ks, stack[:, :, :size])
+        return stack[:, :, :size]
+
+
+def host_rounds(field, degree, host, n_vars, transcript, round_polys, challenges) -> None:
+    """The rounds left of n_vars, on HostTables in exact ints."""
+    for _ in range(n_vars - len(challenges)):
+        round_poly = host.round_sums(degree)
+        transcript.append(field.elements_to_bytes(round_poly))
+        challenge = transcript.sample_field_element(field)
+        host = host.fold(challenge)
+        round_polys.append(round_poly)
+        challenges.append(challenge)
+
+
+def chain_rounds(size: int, chain_tail: int, n_vars: int) -> int:
+    """Rounds that halve a table of ``size`` entries while it is larger
+    than ``chain_tail``, at most n_vars."""
+    rounds = 0
+    while size > chain_tail and rounds < n_vars:
+        rounds += 1
+        size //= 2
+    return rounds
+
+
+def read_device_rounds(field, degree, ks, sums, chs, lo, hi, buf, table, transcript, round_polys, challenges):
+    """The one host sync of a device-transcript prove: read the rounds'
+    canonical sums and challenges ((L, D+1) and (L, 1) device tensors),
+    the sponge (restored into ``transcript``) and, for a host tail, the
+    live ``table``, returned as HostTables (else None)."""
+    L = field.n_limbs
+    parts = [torch.stack(sums), torch.stack(chs), lo, hi, buf] if sums else [lo, hi, buf]
+    if table is not None:
+        parts.append(table)
+    flat = torch.cat([t.reshape(-1).long() for t in parts]).cpu()  # the one sync
+    got = list(torch.split(flat, [t.numel() for t in parts]))
+    if sums:
+        got_sums, got_chs = got.pop(0).reshape(len(sums), L, degree + 1), got.pop(0).reshape(len(sums), L, 1)
+        for total, ch in zip(got_sums, got_chs):
+            round_polys.append(dev.decode_ints(field, total, mont=False))
+            challenges.append(dev.decode_ints(field, ch, mont=False)[0])
+        transcript.import_state(*tdev.state_to_host(got[0], got[1], got[2], 32))
+    if table is None:
+        return None
+    return _decode_host_tables(field, ks, got[3].reshape(-1, L, table.shape[-1]))
 
 
 # --------------------------------------------------------------------------

@@ -337,7 +337,8 @@ def fold_halfsums(field: Field, stack, size: int, r, out):
 # --------------------------------------------------------------------------
 
 
-def run_device_rounds(field: Field, degree: int, ks, stack, rounds: int, pos: int, fold_last: bool, lo, hi, buf):
+def run_device_rounds(field: Field, degree: int, ks, stack, rounds: int, pos: int, fold_last: bool, lo, hi, buf,
+                      reduce=None):
     """Every device-resident round of a prove (prover.rs:44-68): per round
     the Fiat-Shamir step on the pending sums (absorb, squeeze, challenge,
     all on the device), then the fold at the fresh challenge and the
@@ -350,6 +351,10 @@ def run_device_rounds(field: Field, degree: int, ks, stack, rounds: int, pos: in
     first fold writes a fresh half-size buffer).  Every other shape runs
     fold + round_sums / round_sums_terms per round and folds ``stack`` in
     place: the caller passes a fresh buffer (the concatenated terms).
+
+    ``reduce`` (the sharded prover's): called on every round's partials
+    before the Fiat-Shamir step, it returns the partials of the whole
+    table (one collective across the mesh).
 
     Returns (per-round sums [(L, D+1) canonical], challenges [(L, 1)
     canonical], challenges [(L, 1) Montgomery, for device consumers such
@@ -367,6 +372,8 @@ def run_device_rounds(field: Field, degree: int, ks, stack, rounds: int, pos: in
     p = pos
     for rnd in range(rounds):
         last = rnd == rounds - 1
+        if reduce is not None:
+            acc = reduce(acc)
         lo, hi, buf, total, ch_c, ch_m = K.transcript_round(field, p, lo, hi, buf, acc)
         if not last or fold_last:
             out = stack if owned else stack.new_empty(stack.shape[:2] + (size // 2,))

@@ -106,3 +106,8 @@ class Keccak256:
     def import_state(self, lanes, buf: bytes) -> None:
         self._lanes = [int(l) & _MASK64 for l in lanes]
         self._buf = bytearray(buf)
+
+
+def keccak256(data: bytes) -> bytes:
+    """The Keccak-256 digest of ``data`` (0x01 padding, not SHA3's 0x06)."""
+    return Keccak256().update(data).digest()
