@@ -1,11 +1,11 @@
 """The port's host-tier surface against zk_tpu's, exact: the coefficient-form
 MLE, the pairing index, the Boolean hypercube, the Field conversions,
-keccak256, Circuit.outputs, the PERF_LOG timers, and the MLE, ProductPoly
-and SumOfProducts methods.
+keccak256, Circuit.outputs, and the MLE, ProductPoly and SumOfProducts
+methods.
 
 Each scenario runs the same seeded inputs through both packages (each with
 its own field objects) and compares the results.  The scenarios mirror
-tests/test_coeff_mle.py, tests/test_mle.py and tests/test_stat.py.  The
+tests/test_coeff_mle.py and tests/test_mle.py.  The
 host-int scenarios run in every field; the tensor methods run over F17,
 Goldilocks and BLS12-381, with zk_tpu's side (its jnp ops) computed once
 per session and field.  Property cases at sizes past the scenarios' hold
@@ -15,9 +15,7 @@ interpolation, and Keccak-256 at the sponge's block boundaries.
 
 import functools
 import json
-import os
 import random
-import re
 from types import SimpleNamespace
 
 import numpy as np
@@ -31,14 +29,12 @@ import zk_tpu.poly.coeff_mle as jcm
 import zk_tpu.poly.hypercube as jhc
 import zk_tpu.poly.pairing_index as jpi
 import zk_tpu.transcript.keccak as jkeccak
-import zk_tpu.utils as jutils
 import zk_tpu_torch.fields as tfields
 import zk_tpu_torch.gkr.circuit as tcircuit
 import zk_tpu_torch.poly.coeff_mle as tcm
 import zk_tpu_torch.poly.hypercube as thc
 import zk_tpu_torch.poly.pairing_index as tpi
 import zk_tpu_torch.transcript.keccak as tkeccak
-import zk_tpu_torch.utils as tutils
 from zk_tpu_torch.poly.mle import MLE
 from zk_tpu_torch.poly.product import ProductPoly, SumOfProducts
 from zk_tpu_torch.poly.univariate import UnivariatePolynomial
@@ -48,15 +44,15 @@ from torch_helpers import once_per_session
 torch.set_num_threads(1)
 
 
-def _ns(fields, cm, hc, pi, keccak, utils, circuit) -> SimpleNamespace:
+def _ns(fields, cm, hc, pi, keccak, circuit) -> SimpleNamespace:
     return SimpleNamespace(
         F17=fields.F17, G=fields.GOLDILOCKS, FR=fields.BLS12_381_FR, cm=cm, CM=cm.CoeffMultilinearPolynomial,
-        hc=hc, pi=pi, keccak256=keccak.keccak256, utils=utils, Circuit=circuit.Circuit, Gate=circuit.Gate,
+        hc=hc, pi=pi, keccak256=keccak.keccak256, Circuit=circuit.Circuit, Gate=circuit.Gate,
     )
 
 
-JAX = _ns(jfields, jcm, jhc, jpi, jkeccak, jutils, jcircuit)
-PORT = _ns(tfields, tcm, thc, tpi, tkeccak, tutils, tcircuit)
+JAX = _ns(jfields, jcm, jhc, jpi, jkeccak, jcircuit)
+PORT = _ns(tfields, tcm, thc, tpi, tkeccak, tcircuit)
 
 
 def _plain(x):
@@ -190,10 +186,6 @@ HOST = {
         [list(ns.pi.index_pair(n, i)) for n in range(1, 5) for i in range(n)],
     ],
     "boolean_hypercube": lambda ns: [list(ns.hc.BooleanHyperCube(n)) for n in range(5)],
-    "op_counters": lambda ns: [
-        [ns.utils.mle_eval_mults(n) for n in (0, 3, 20, 24)],
-        [ns.utils.sumcheck_prover_mults(n, d, k) for n in (3, 10, 24) for d in (1, 2, 3) for k in (1, 2, 3)],
-    ],
 }
 
 
@@ -304,33 +296,6 @@ def test_keccak256_block_boundaries_match_zk_tpu(length):
 
 def test_keccak256_known_answer():
     assert tkeccak.keccak256(b"").hex() == "c5d2460186f7233c927e7db2dcc703c0e500b653ca82273b7bfad8045d85a470"
-
-
-# --------------------------------------------------------------------------
-# PERF_LOG timers (stat/src/lib.rs)
-# --------------------------------------------------------------------------
-
-
-def _timer_output(utils, capsys, enabled: bool) -> str:
-    if enabled:
-        os.environ["PERF_LOG"] = "true"
-    try:
-        utils.start_timer("scope")
-        utils.end_timer()
-        with utils.timer("outer"):
-            with utils.timer("inner"):
-                pass
-    finally:
-        os.environ.pop("PERF_LOG", None)
-    return re.sub(r"\d+\.\d+ms", "Tms", capsys.readouterr().err)
-
-
-@pytest.mark.parametrize("enabled", [False, True], ids=["off", "on"])
-def test_timers_match_zk_tpu(capsys, enabled):
-    want = _timer_output(jutils, capsys, enabled)
-    got = _timer_output(tutils, capsys, enabled)
-    assert got == want
-    assert ("inner (begin)" in got) == enabled
 
 
 # --------------------------------------------------------------------------

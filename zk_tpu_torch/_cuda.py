@@ -49,7 +49,6 @@ KERNELS = (
 _LOCK = threading.Lock()
 _LIB = None
 _LAUNCHES = {name: 0 for name in KERNELS}
-last_build_seconds: float | None = None
 
 
 class KernelBuildError(RuntimeError):
@@ -92,14 +91,20 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into _build/libzk_kernels_<hash>.so (cached): one
-    nvcc process per source, run in parallel, then one link."""
-    global last_build_seconds
-    import time
+    nvcc process per source, run in parallel, then one link: a ``zk.build``
+    span."""
+    from zk_tpu_torch.utils.stat import span
 
     digest = _digest()
     out = BUILD_DIR / f"libzk_kernels_{digest}.so"
     if out.exists():
         return out
+    with span("zk.build"):
+        _compile(digest, out)
+    return out
+
+
+def _compile(digest: str, out: Path) -> None:
     nvcc = find_nvcc()
     if nvcc is None:
         raise KernelBuildError(
@@ -108,7 +113,6 @@ def build() -> Path:
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{digest}.{os.getpid()}"
-    t0 = time.perf_counter()
     jobs = []
     for src in _sources():
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
@@ -134,8 +138,6 @@ def build() -> Path:
     finally:
         for obj in objs:
             Path(obj).unlink(missing_ok=True)
-    last_build_seconds = time.perf_counter() - t0
-    return out
 
 
 def lib() -> ctypes.CDLL:

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from zk_tpu_torch.fields.field import Field, LIMB_BITS, LIMB_MASK
+from zk_tpu_torch.utils.stat import to_host
 
 _B = LIMB_BITS
 
@@ -92,32 +93,44 @@ def encode_ints(field: Field, values, *, device, mont: bool = True) -> torch.Ten
     return torch.from_numpy(np.ascontiguousarray(limbs.T.astype(np.int32))).to(device)
 
 
-def _canonical_host(field: Field, t: torch.Tensor, mont: bool) -> np.ndarray:
-    """(L, N) limbs -> host (N, L) uint16 canonical limbs.  Montgomery
-    un-scaling is one product by the integer 1 through the mont_mul kernel
-    wrapper: one launch on a card (the limb tier takes a few hundred, which
-    dominated a warm 2^24 MLE.evaluate), the plain version on the CPU.
-    Limbs may come in any integer dtype (a prover's host readback is int64)."""
+def _canonical(field: Field, t: torch.Tensor, mont: bool) -> torch.Tensor:
+    """(L, N) limbs -> (L, N) int32 canonical limbs on t's device.
+    Montgomery un-scaling is one product by the integer 1 through the
+    mont_mul kernel wrapper: one launch on a card (the limb tier takes a few
+    hundred, which dominated a warm 2^24 MLE.evaluate), the plain version on
+    the CPU.  Limbs may come in any integer dtype (a prover's host readback
+    is int64)."""
     from zk_tpu_torch.fields import kernels  # the kernel layer imports this module
 
     t = t.reshape(field.n_limbs, -1).to(torch.int32).contiguous()
     if mont:
         one = cached_const(field, 1, False, t.device).expand(t.shape).contiguous()
         t = kernels.mont_mul(field, t, one)
-    return np.ascontiguousarray(t.cpu().numpy().astype(np.uint16).T)
+    return t
+
+
+def _rows(t: torch.Tensor) -> np.ndarray:
+    """(L, N) limbs in a CPU tensor -> (N, L) uint16."""
+    return np.ascontiguousarray(t.numpy().astype(np.uint16).T)
+
+
+def host_ints(field: Field, t: torch.Tensor, mont: bool = True) -> list[int]:
+    """(L, N) limbs already read back (a CPU tensor) -> canonical Python
+    ints, with no read of their own."""
+    data, w = _rows(_canonical(field, t, mont)).astype("<u2").tobytes(), 2 * field.n_limbs
+    return [int.from_bytes(data[j * w : (j + 1) * w], "little") for j in range(len(data) // w)]
 
 
 def decode_ints(field: Field, t: torch.Tensor, mont: bool = True) -> list[int]:
-    """(L, N) limb tensor -> list of canonical Python ints."""
-    rows = _canonical_host(field, t, mont).astype("<u2")
-    data, w = rows.tobytes(), 2 * field.n_limbs
-    return [int.from_bytes(data[j * w : (j + 1) * w], "little") for j in range(rows.shape[0])]
+    """(L, N) limb tensor -> list of canonical Python ints: un-scaled where
+    t lies, then one read."""
+    return host_ints(field, to_host(_canonical(field, t, mont)), mont=False)
 
 
 def decode_bytes_be(field: Field, t: torch.Tensor, mont: bool = True) -> bytes:
     """(L, N) limb tensor -> concatenated canonical BE bytes, n_bytes per
     element (evaluation_form.rs:97-103 / zk_tpu.fields.device)."""
-    rows = _canonical_host(field, t, mont)[:, ::-1].astype(">u2")  # MS limb first
+    rows = _rows(to_host(_canonical(field, t, mont)))[:, ::-1].astype(">u2")  # MS limb first
     n, nb, w = rows.shape[0], field.n_bytes, 2 * field.n_limbs
     raw = np.frombuffer(rows.tobytes(), dtype=np.uint8).reshape(n, w)
     if w == nb:

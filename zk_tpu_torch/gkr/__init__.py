@@ -21,7 +21,7 @@ prove) by default on the card for p > 2^32; the per-phase prover (its
 sumchecks in any tier of ``SumcheckProver``) otherwise, with
 ``device_transcript=False``, or over a mesh (``ShardedSumcheckProver``);
 ``prove_dense``, the O(4^k) differential oracle.  All give the same
-bytes.  The stages are wrapped in ``utils.timer`` (PERF_LOG=true).
+bytes.  The provers' stages are ``zk.gkr.*`` spans (``utils.stat``).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ from zk_tpu_torch.sumcheck import (
     proof_to_bytes,
 )
 from zk_tpu_torch.transcript import Transcript
-from zk_tpu_torch.utils import timer
+from zk_tpu_torch.utils.stat import span
 
 
 class GKRError(Exception):
@@ -193,14 +193,14 @@ class GKRProver:
 
             return prove_chain(field, circuit, inputs, d)
 
-        with timer("gkr witness (device circuit eval)"):
+        with span("zk.gkr.witness"):
             levels = gdev.evaluate_device(circuit, field, inputs, d, mesh=mesh)
             nb, n_out = field.n_bytes, len(circuit.layers[0])
             out_bytes = dev.decode_bytes_be(field, levels[0])[: n_out * nb]
             outputs = [int.from_bytes(out_bytes[i * nb : (i + 1) * nb], "big") for i in range(n_out)]
 
         transcript = Transcript()
-        with timer("gkr bind outputs + r0"):
+        with span("zk.gkr.bind_outputs"):
             transcript.append(out_bytes)
             r = transcript.sample_n_field_elements(field, circuit.layer_k(0))
             m = dev.decode_ints(field, gdev.mle_eval_points(field, levels[0], [r]))[0]
@@ -214,23 +214,23 @@ class GKRProver:
                 prove_phase = functools.partial(ShardedSumcheckProver._prove_internal, mesh)
             else:
                 prove_phase = SumcheckProver._prove_internal
-            with timer(f"layer {i} eq_r table"):
+            with span("zk.gkr.eq_r_table"):
                 eq_r = gdev.eq_table(field, r, d)
 
             # phase 1: sum over b of G1(b) W(b) + A2(b); binds the claim
-            with timer(f"layer {i} phase1 tables"):
+            with span("zk.gkr.phase1_tables"):
                 poly1 = gdev.build_phase1(field, circuit, i, eq_r, w_dev)
-            with timer(f"layer {i} phase1 sumcheck"):
+            with span("zk.gkr.phase1_sumcheck"):
                 proof1, u = prove_phase(poly1, m, transcript, **tiers)
             m2 = UnivariatePolynomial.interpolate(field, proof1.round_polys[-1]).evaluate(u[-1]) if u else m
 
             # phase 2: sum over c with b fixed at u (the claim is bound)
-            with timer(f"layer {i} phase2 tables"):
+            with span("zk.gkr.phase2_tables"):
                 poly2, _ = gdev.build_phase2(field, circuit, i, eq_r, u, w_dev)
-            with timer(f"layer {i} phase2 sumcheck"):
+            with span("zk.gkr.phase2_sumcheck"):
                 proof2, v = prove_phase(poly2, m2, transcript, bind_sum=False, **tiers)
 
-            with timer(f"layer {i} line restriction evals"):
+            with span("zk.gkr.line_restriction"):
                 q_evals = gdev.line_restriction_evals(field, w_dev, u, v)
             w_b, w_c = q_evals[0], q_evals[min(1, k_in)]
             transcript.append(field.elements_to_bytes([w_b, w_c]))

@@ -32,7 +32,7 @@ from zk_tpu_torch.poly.mle import fold_var0
 from zk_tpu_torch.sumcheck import capacity as C
 from zk_tpu_torch.transcript import Transcript
 from zk_tpu_torch.transcript import device as tdev
-from zk_tpu_torch.utils import timer
+from zk_tpu_torch.utils.stat import span, to_host
 
 
 def _bind(field: Field, pos: int, lo, hi, buf, m_mont):
@@ -99,14 +99,14 @@ def prove_chain(field: Field, circuit, inputs, device=None):
     from zk_tpu_torch.sumcheck import SumcheckProof
 
     nb, L = field.n_bytes, field.n_limbs
-    with timer("gkr witness (device circuit eval + output fetch)"):
+    with span("zk.gkr.witness"):
         levels = gdev.evaluate_device(circuit, field, inputs, device)
         d = levels[0].device
         n_out = len(circuit.layers[0])
         out_bytes = dev.decode_bytes_be(field, levels[0])[: n_out * nb]  # a host sync
 
     transcript = Transcript()
-    with timer("gkr bind outputs + r0"):
+    with span("zk.gkr.bind_outputs"):
         transcript.append(out_bytes)
         r = transcript.sample_n_field_elements(field, circuit.layer_k(0))
         m_mont = gdev.mle_eval_points(field, levels[0], [r])  # (L, 1)
@@ -114,7 +114,7 @@ def prove_chain(field: Field, circuit, inputs, device=None):
         r_kl = gdev._mont_rs(field, r, d)
 
     per_layer = []  # (claim m, round sums, canonical q_evals), on the device
-    with timer("gkr layer chain (async dispatches)"):
+    with span("zk.gkr.layer_chain"):
         for i in range(circuit.depth):
             eq_r = gdev._eq_expand(field, r_kl)
             w_dev = levels[i + 1]
@@ -137,24 +137,24 @@ def prove_chain(field: Field, circuit, inputs, device=None):
             per_layer.append((m_layer, torch.stack(sums1 + sums2), q_canon))
             del g1, a2, add_u, mul_u_s, w_shift, eq_r, eq_u
 
-    with timer("gkr parse outputs (overlaps device drain)"):
+    with span("zk.gkr.parse_outputs"):  # overlaps the device's drain
         outputs = [int.from_bytes(out_bytes[i * nb : (i + 1) * nb], "big") for i in range(n_out)]
 
     # the one sync: every proof component
-    with timer("gkr final sync + proof assembly"):
+    with span("zk.gkr.final_sync"):
         parts = [t for layer in per_layer for t in layer]
-        flat = torch.cat([t.reshape(-1).long() for t in parts]).cpu()
+        flat = to_host(torch.cat([t.reshape(-1).long() for t in parts]))
         got = iter(torch.split(flat, [t.numel() for t in parts]))
         layer_proofs = []
         for i in range(circuit.depth):
             m_h, sums_h, q_h = next(got), next(got), next(got)
             k_in = circuit.layer_k(i + 1)
             sums_h = sums_h.reshape(2 * k_in, L, 3)
-            q_evals = dev.decode_ints(field, q_h.reshape(L, k_in + 1), mont=False)
+            q_evals = dev.host_ints(field, q_h.reshape(L, k_in + 1), mont=False)
             layer_proofs.append(LayerProof(
                 sumcheck=SumcheckProof(
-                    sum=dev.decode_ints(field, m_h.reshape(L, 1))[0],
-                    round_polys=[dev.decode_ints(field, s, mont=False) for s in sums_h],
+                    sum=dev.host_ints(field, m_h.reshape(L, 1))[0],
+                    round_polys=[dev.host_ints(field, s, mont=False) for s in sums_h],
                 ),
                 w_b=q_evals[0],
                 w_c=q_evals[1],

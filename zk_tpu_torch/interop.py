@@ -17,6 +17,7 @@ from zk_tpu_torch.fields import device as dev
 from zk_tpu_torch.fields.field import Field
 from zk_tpu_torch.gkr.circuit import Circuit
 from zk_tpu_torch.poly.mle import MLE
+from zk_tpu_torch.utils.stat import to_host
 
 
 def limbs_from_numpy(arr, device=None) -> torch.Tensor:
@@ -29,7 +30,7 @@ def limbs_from_numpy(arr, device=None) -> torch.Tensor:
 
 def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
     """int32 limb tensor -> uint32 numpy array."""
-    return t.cpu().numpy().astype(np.uint32)
+    return to_host(t).numpy().astype(np.uint32)
 
 
 def mle_from_jax(field: Field, n_vars: int, np_data, device=None) -> MLE:
@@ -49,8 +50,8 @@ def transcript_state_from_jax(lo, hi, buf, pos: int, device=None):
 
 def transcript_state_to_jax(lo, hi, buf, pos: int):
     """Port sponge state -> (lo, hi, buf, pos) uint32 numpy arrays."""
-    n = lambda t: t.cpu().numpy().astype(np.uint32)  # noqa: E731
-    return n(lo), n(hi), n(buf), int(pos)
+    flat = to_host(torch.cat([lo, hi, buf])).numpy().astype(np.uint32)
+    return flat[:25], flat[25:50], flat[50:], int(pos)
 
 
 def circuit_from_jax(jax_circuit) -> Circuit:

@@ -15,6 +15,7 @@ import torch
 
 from zk_tpu_torch.fields.field import Field
 from zk_tpu_torch.fields import device as dev
+from zk_tpu_torch.utils.stat import span, to_host
 
 
 def fold_ladder(field: Field, n_vars: int, initial_var: int, data, rs):
@@ -109,7 +110,8 @@ class MLE:
         """Full evaluation (evaluation_form.rs:83-89)."""
         if len(assignments) != self.n_vars:
             raise ValueError("evaluate must assign to all variables")
-        return dev.decode_ints(self.field, self.partial_evaluate(0, assignments).data)[0]
+        with span("zk.mle.evaluate"):
+            return dev.decode_ints(self.field, self.partial_evaluate(0, assignments).data)[0]
 
     def evaluation_ints(self) -> list[int]:
         """Canonical evaluations as Python ints."""
@@ -124,10 +126,14 @@ class MLE:
         are canonical Montgomery representatives)."""
         if not isinstance(other, MLE):
             return NotImplemented
+        a, b = self.data, other.data
+        if a.device != b.device:  # compare on the host
+            a, b = to_host(a), to_host(b)
         return (
             self.field.p == other.field.p
             and self.n_vars == other.n_vars
-            and torch.equal(self.data, other.data.to(self.data.device))
+            and a.shape == b.shape
+            and bool(to_host(torch.eq(a, b).all()))
         )
 
     def __repr__(self):

@@ -36,6 +36,7 @@ from zk_tpu_torch.poly.univariate import UnivariatePolynomial
 from zk_tpu_torch.sumcheck import capacity as C
 from zk_tpu_torch.sumcheck import kernels as K
 from zk_tpu_torch.transcript import device as tdev
+from zk_tpu_torch.utils.stat import span, to_host
 
 
 class SumcheckError(Exception):
@@ -73,14 +74,29 @@ def absorb_poly(transcript: Transcript, poly) -> None:
                 transcript.append(dev.decode_bytes_be(poly.field, data[:, a : a + _ABSORB_CHUNK]))
 
 
-def _decode_host_tables(field: Field, ks, rows) -> K.HostTables:
-    """(sum(ks), L, n) factor rows -> HostTables split into the terms ks."""
-    ints = [dev.decode_ints(field, rows[i]) for i in range(rows.shape[0])]
+def _canonical_rows(field: Field, table) -> torch.Tensor:
+    """(rows, L, n) Montgomery factor rows -> (L, rows * n) canonical limbs
+    on the table's device (one mont_mul launch on a card)."""
+    rows, L, n = table.shape
+    return dev._canonical(field, table.permute(1, 0, 2).reshape(L, rows * n), True)
+
+
+def _host_tables(field: Field, ks, limbs, n: int) -> K.HostTables:
+    """(L, rows * n) canonical limbs, read back, -> HostTables: rows of n
+    entries split into the terms ks."""
+    ints = dev.host_ints(field, limbs, mont=False)
+    rows = [ints[i : i + n] for i in range(0, len(ints), n)]
     terms, row = [], 0
     for k in ks:
-        terms.append(ints[row : row + k])
+        terms.append(rows[row : row + k])
         row += k
     return K.HostTables(field, terms)
+
+
+def _decode_host_tables(field: Field, ks, table) -> K.HostTables:
+    """(sum(ks), L, n) Montgomery factor rows -> HostTables split into the
+    terms ks: un-scaled where they lie, then one read."""
+    return _host_tables(field, ks, to_host(_canonical_rows(field, table)), table.shape[-1])
 
 
 class SumcheckProver:
@@ -132,55 +148,60 @@ class SumcheckProver:
         skips the claimed-sum binding: the second phase of a two-phase GKR
         layer continues a sumcheck already bound (the verifier absorbs the
         sum once per layer proof, verifier.rs:50)."""
-        field: Field = poly.field
-        degree = max_var_degree if max_var_degree is not None else poly.max_degree
-        tail = K.TAIL_SIZE if tail_size is None else tail_size
-        if bind_sum:
-            transcript.append(field.to_bytes_be(sum))
+        with span("zk.prove"):
+            field: Field = poly.field
+            degree = max_var_degree if max_var_degree is not None else poly.max_degree
+            tail = K.TAIL_SIZE if tail_size is None else tail_size
+            if bind_sum:
+                transcript.append(field.to_bytes_be(sum))
 
-        round_polys: list[list[int]] = []
-        challenges: list[int] = []
-        n_vars = poly.n_vars
-        size = 1 << n_vars
-        terms = terms_of(poly)
-        ks = tuple(len(t) for t in terms)
-        device = terms[0][0].device
-        if device_transcript is None:
-            device_transcript = device.type == "cuda" and field.p > (1 << 32)
-        host_tables = None
+            round_polys: list[list[int]] = []
+            challenges: list[int] = []
+            n_vars = poly.n_vars
+            size = 1 << n_vars
+            terms = terms_of(poly)
+            ks = tuple(len(t) for t in terms)
+            device = terms[0][0].device
+            default = device.type == "cuda"
+            device_transcript = field.p > (1 << 32) and (default if device_transcript is None else device_transcript)
+            host_tables = None
 
-        if size > tail and n_vars > 0:
-            L = field.n_limbs
-            if (degree, ks) == (1, (1,)):
-                stack = terms[0][0].reshape(1, L, size)  # a view: never written
-            else:  # a fresh buffer, folded in place
-                stack = torch.cat([t.reshape(1, L, size) for term in terms for t in term])
-            if device_transcript and field.p > (1 << 32):
-                host_tables = SumcheckProver._device_rounds(
-                    field, degree, ks, stack, n_vars, tail, tail_size is None, transcript,
-                    round_polys, challenges,
-                )
-            else:
-                table = SumcheckProver._synced_rounds(
-                    field, degree, ks, stack, n_vars, tail, transcript, round_polys, challenges
-                )
-                host_tables = None if table is None else _decode_host_tables(field, ks, table)
+            if size > tail and n_vars > 0:
+                with span("zk.prove.start"):
+                    L = field.n_limbs
+                    if (degree, ks) == (1, (1,)):
+                        stack = terms[0][0].reshape(1, L, size)  # a view: never written
+                    else:  # a fresh buffer, folded in place
+                        stack = torch.cat([t.reshape(1, L, size) for term in terms for t in term])
+                    sponge = tdev.state_to_device(*transcript.export_state(), device) if device_transcript else None
+                if device_transcript:
+                    host_tables = SumcheckProver._device_rounds(
+                        field, degree, ks, stack, sponge, n_vars, tail, tail_size is None, transcript,
+                        round_polys, challenges,
+                    )
+                else:
+                    table = SumcheckProver._synced_rounds(
+                        field, degree, ks, stack, n_vars, tail, transcript, round_polys, challenges
+                    )
+                    host_tables = None if table is None else _decode_host_tables(field, ks, table)
 
-        if len(challenges) < n_vars and host_tables is None:
-            host_tables = K.HostTables(field, [[dev.decode_ints(field, t) for t in term] for term in terms])
-        host_rounds(field, degree, host_tables, n_vars, transcript, round_polys, challenges)
-        return SumcheckProof(sum=sum, round_polys=round_polys), challenges
+            if len(challenges) < n_vars and host_tables is None:
+                host_tables = K.HostTables(field, [[dev.decode_ints(field, t) for t in term] for term in terms])
+            host_rounds(field, degree, host_tables, n_vars, transcript, round_polys, challenges)
+            return SumcheckProof(sum=sum, round_polys=round_polys), challenges
 
     @staticmethod
-    def _device_rounds(field, degree, ks, stack, n_vars, tail, default_tail, transcript, round_polys, challenges):
+    def _device_rounds(field, degree, ks, stack, sponge, n_vars, tail, default_tail, transcript, round_polys,
+                       challenges):
         """Device-resident Fiat-Shamir: every round is queued on the device
         and ONE host sync at the end reads the round polys, challenges,
         sponge state (and the table, when a host tail follows).  On CUDA
         every round runs on the device; on the CPU the last tables of up
         to 128 elements finish on host ints, as in the reference (there a
         device round is hundreds of small torch ops, dearer than the host
-        tail's bigint products).  An explicit tail_size wins."""
-        lo, hi, buf, pos = tdev.state_to_device(*transcript.export_state(), stack.device)
+        tail's bigint products).  An explicit tail_size wins.  ``sponge``:
+        (lo, hi, buf, pos) on the device."""
+        lo, hi, buf, pos = sponge
         if default_tail:
             chain_tail = 1 if stack.device.type == "cuda" else min(128, tail)
         else:
@@ -206,35 +227,39 @@ class SumcheckProver:
         acc = C.term_sums(field, degree, ks, stack, size)
         owned = not deg1  # a degree-1 prove's first fold writes a fresh buffer
         while size > tail:
-            round_poly = K.decode_sums(field, acc if reduce is None else reduce(acc))
-            transcript.append(field.elements_to_bytes(round_poly))
-            challenge = transcript.sample_field_element(field)
-            round_polys.append(round_poly)
-            challenges.append(challenge)
-            if len(challenges) == n_vars:
-                return None  # the last round needs no fold
-            r = dev.scalar(field, challenge, device=stack.device)
-            out = stack if owned else stack.new_empty((1, field.n_limbs, size // 2))
-            if deg1:
-                stack, acc = C.fold_halfsums(field, stack, size, r, out=out)  # size >= 4 here
-            else:
-                stack = C.fold(field, stack, size, r, out=out)
-                if size // 2 > tail:
-                    acc = C.term_sums(field, degree, ks, stack, size // 2)
-            owned = True
-            size //= 2
+            with span("zk.prove.round"):
+                round_poly = K.decode_sums(field, acc if reduce is None else reduce(acc))
+                transcript.append(field.elements_to_bytes(round_poly))
+                challenge = transcript.sample_field_element(field)
+                round_polys.append(round_poly)
+                challenges.append(challenge)
+                if len(challenges) == n_vars:
+                    return None  # the last round needs no fold
+                r = dev.scalar(field, challenge, device=stack.device)
+                out = stack if owned else stack.new_empty((1, field.n_limbs, size // 2))
+                if deg1:
+                    stack, acc = C.fold_halfsums(field, stack, size, r, out=out)  # size >= 4 here
+                else:
+                    stack = C.fold(field, stack, size, r, out=out)
+                    if size // 2 > tail:
+                        acc = C.term_sums(field, degree, ks, stack, size // 2)
+                owned = True
+                size //= 2
         return stack[:, :, :size]
 
 
 def host_rounds(field, degree, host, n_vars, transcript, round_polys, challenges) -> None:
     """The rounds left of n_vars, on HostTables in exact ints."""
-    for _ in range(n_vars - len(challenges)):
-        round_poly = host.round_sums(degree)
-        transcript.append(field.elements_to_bytes(round_poly))
-        challenge = transcript.sample_field_element(field)
-        host = host.fold(challenge)
-        round_polys.append(round_poly)
-        challenges.append(challenge)
+    if len(challenges) == n_vars:
+        return
+    with span("zk.prove.decode"):
+        for _ in range(n_vars - len(challenges)):
+            round_poly = host.round_sums(degree)
+            transcript.append(field.elements_to_bytes(round_poly))
+            challenge = transcript.sample_field_element(field)
+            host = host.fold(challenge)
+            round_polys.append(round_poly)
+            challenges.append(challenge)
 
 
 def chain_rounds(size: int, chain_tail: int, n_vars: int) -> int:
@@ -255,18 +280,19 @@ def read_device_rounds(field, degree, ks, sums, chs, lo, hi, buf, table, transcr
     L = field.n_limbs
     parts = [torch.stack(sums), torch.stack(chs), lo, hi, buf] if sums else [lo, hi, buf]
     if table is not None:
-        parts.append(table)
-    flat = torch.cat([t.reshape(-1).long() for t in parts]).cpu()  # the one sync
-    got = list(torch.split(flat, [t.numel() for t in parts]))
-    if sums:
-        got_sums, got_chs = got.pop(0).reshape(len(sums), L, degree + 1), got.pop(0).reshape(len(sums), L, 1)
-        for total, ch in zip(got_sums, got_chs):
-            round_polys.append(dev.decode_ints(field, total, mont=False))
-            challenges.append(dev.decode_ints(field, ch, mont=False)[0])
-        transcript.import_state(*tdev.state_to_host(got[0], got[1], got[2], 32))
-    if table is None:
-        return None
-    return _decode_host_tables(field, ks, got[3].reshape(-1, L, table.shape[-1]))
+        parts.append(_canonical_rows(field, table))
+    flat = to_host(torch.cat([t.reshape(-1).long() for t in parts]))  # the one sync
+    with span("zk.prove.decode"):
+        got = list(torch.split(flat, [t.numel() for t in parts]))
+        if sums:
+            got_sums, got_chs = got.pop(0).reshape(len(sums), L, degree + 1), got.pop(0).reshape(len(sums), L, 1)
+            for total, ch in zip(got_sums, got_chs):
+                round_polys.append(dev.host_ints(field, total, mont=False))
+                challenges.append(dev.host_ints(field, ch, mont=False)[0])
+            transcript.import_state(*tdev.state_from_host(got[0], got[1], got[2], 32))
+        if table is None:
+            return None
+        return _host_tables(field, ks, got[3].reshape(L, -1), table.shape[-1])
 
 
 # --------------------------------------------------------------------------
@@ -277,33 +303,35 @@ def read_device_rounds(field, degree, ks, sums, chs, lo, hi, buf, table, transcr
 def proof_to_bytes(field: Field, proof: SumcheckProof) -> bytes:
     """u32 round count, sum, then per round u32 eval count + canonical BE
     elements (zk_tpu.sumcheck.proof_to_bytes)."""
-    out = bytearray()
-    out += len(proof.round_polys).to_bytes(4, "big")
-    out += field.to_bytes_be(proof.sum)
-    for rp in proof.round_polys:
-        out += len(rp).to_bytes(4, "big")
-        out += field.elements_to_bytes(rp)
-    return bytes(out)
+    with span("zk.proof.to_bytes"):
+        out = bytearray()
+        out += len(proof.round_polys).to_bytes(4, "big")
+        out += field.to_bytes_be(proof.sum)
+        for rp in proof.round_polys:
+            out += len(rp).to_bytes(4, "big")
+            out += field.elements_to_bytes(rp)
+        return bytes(out)
 
 
 def proof_from_bytes(field: Field, data: bytes) -> SumcheckProof:
-    off = 0
-    n_rounds = int.from_bytes(data[off : off + 4], "big")
-    off += 4
-    s = field.from_be_bytes_mod_order(data[off : off + field.n_bytes])
-    off += field.n_bytes
-    round_polys = []
-    for _ in range(n_rounds):
-        cnt = int.from_bytes(data[off : off + 4], "big")
+    with span("zk.proof.from_bytes"):
+        off = 0
+        n_rounds = int.from_bytes(data[off : off + 4], "big")
         off += 4
-        rp = []
-        for _ in range(cnt):
-            rp.append(field.from_be_bytes_mod_order(data[off : off + field.n_bytes]))
-            off += field.n_bytes
-        round_polys.append(rp)
-    if off != len(data):
-        raise ValueError("trailing bytes in serialized proof")
-    return SumcheckProof(sum=s, round_polys=round_polys)
+        s = field.from_be_bytes_mod_order(data[off : off + field.n_bytes])
+        off += field.n_bytes
+        round_polys = []
+        for _ in range(n_rounds):
+            cnt = int.from_bytes(data[off : off + 4], "big")
+            off += 4
+            rp = []
+            for _ in range(cnt):
+                rp.append(field.from_be_bytes_mod_order(data[off : off + field.n_bytes]))
+                off += field.n_bytes
+            round_polys.append(rp)
+        if off != len(data):
+            raise ValueError("trailing bytes in serialized proof")
+        return SumcheckProof(sum=s, round_polys=round_polys)
 
 
 # --------------------------------------------------------------------------
@@ -334,15 +362,16 @@ class SumcheckVerifier:
     @staticmethod
     def _verify_internal(field: Field, proof: SumcheckProof, transcript: Transcript) -> SubClaim:
         """verifier.rs:44-78."""
-        challenges: list[int] = []
-        transcript.append(field.to_bytes_be(proof.sum))
-        claimed_sum = proof.sum % field.p
-        for round_poly in proof.round_polys:
-            transcript.append(field.elements_to_bytes(round_poly))
-            uni = UnivariatePolynomial.interpolate(field, round_poly)
-            if claimed_sum != field.add(uni.evaluate(0), uni.evaluate(1)):
-                raise SumcheckError("verifier check failed: claimed_sum != p(0) + p(1)")
-            challenge = transcript.sample_field_element(field)
-            claimed_sum = uni.evaluate(challenge)
-            challenges.append(challenge)
-        return SubClaim(sum=claimed_sum, challenges=challenges)
+        with span("zk.verify"):
+            challenges: list[int] = []
+            transcript.append(field.to_bytes_be(proof.sum))
+            claimed_sum = proof.sum % field.p
+            for round_poly in proof.round_polys:
+                transcript.append(field.elements_to_bytes(round_poly))
+                uni = UnivariatePolynomial.interpolate(field, round_poly)
+                if claimed_sum != field.add(uni.evaluate(0), uni.evaluate(1)):
+                    raise SumcheckError("verifier check failed: claimed_sum != p(0) + p(1)")
+                challenge = transcript.sample_field_element(field)
+                claimed_sum = uni.evaluate(challenge)
+                challenges.append(challenge)
+            return SubClaim(sum=claimed_sum, challenges=challenges)

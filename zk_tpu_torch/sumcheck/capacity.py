@@ -39,6 +39,7 @@ from zk_tpu_torch.fields.field import Field
 from zk_tpu_torch import _cuda
 from zk_tpu_torch.fields import device as dev
 from zk_tpu_torch.fields.kernels import check_cuda, cuda_stream, field_params
+from zk_tpu_torch.utils.stat import span
 
 THREADS = 256  # csrc/capacity.cu THREADS
 MAX_PARTIALS = 1024  # blocks (= partial accumulators) of a sums kernel
@@ -371,24 +372,25 @@ def run_device_rounds(field: Field, degree: int, ks, stack, rounds: int, pos: in
     owned = not deg1  # a degree-1 prove's first fold writes a fresh buffer
     p = pos
     for rnd in range(rounds):
-        last = rnd == rounds - 1
-        if reduce is not None:
-            acc = reduce(acc)
-        lo, hi, buf, total, ch_c, ch_m = K.transcript_round(field, p, lo, hi, buf, acc)
-        if not last or fold_last:
-            out = stack if owned else stack.new_empty(stack.shape[:2] + (size // 2,))
-            if not deg1:
-                stack = fold(field, stack, size, ch_m, out=out)
-                if not last:
-                    acc = term_sums(field, degree, ks, stack, size // 2)
-            elif not last:
-                stack, acc = fold_halfsums(field, stack, size, ch_m, out=out)
-            else:
-                stack = fold_multi(field, stack, size, ch_m, out=out)
-            owned = True
-            size //= 2
-        p = 32
-        sums.append(total)
-        chs.append(ch_c)
-        chs_mont.append(ch_m)
+        with span("zk.prove.round"):
+            last = rnd == rounds - 1
+            if reduce is not None:
+                acc = reduce(acc)
+            lo, hi, buf, total, ch_c, ch_m = K.transcript_round(field, p, lo, hi, buf, acc)
+            if not last or fold_last:
+                out = stack if owned else stack.new_empty(stack.shape[:2] + (size // 2,))
+                if not deg1:
+                    stack = fold(field, stack, size, ch_m, out=out)
+                    if not last:
+                        acc = term_sums(field, degree, ks, stack, size // 2)
+                elif not last:
+                    stack, acc = fold_halfsums(field, stack, size, ch_m, out=out)
+                else:
+                    stack = fold_multi(field, stack, size, ch_m, out=out)
+                owned = True
+                size //= 2
+            p = 32
+            sums.append(total)
+            chs.append(ch_c)
+            chs_mont.append(ch_m)
     return sums, chs, chs_mont, lo, hi, buf, stack[:, :, :size]

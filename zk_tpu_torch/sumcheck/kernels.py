@@ -32,6 +32,7 @@ from zk_tpu_torch.fields import device as dev
 from zk_tpu_torch.fields.kernels import check_cuda, cuda_stream, field_params
 from zk_tpu_torch.sumcheck.capacity import MAX_PARTIALS
 from zk_tpu_torch.transcript import device as tdev
+from zk_tpu_torch.utils.stat import to_host
 
 TAIL_SIZE = 2048  # tables at/below this size finish on host ints
 
@@ -45,7 +46,7 @@ def canon_sums(field: Field, partials: torch.Tensor) -> torch.Tensor:
 
 def decode_sums(field: Field, partials: torch.Tensor) -> list[int]:
     """(P, L, G) int64 partials -> P canonical ints (host)."""
-    totals = partials.sum(dim=-1).tolist()
+    totals = to_host(partials.sum(dim=-1)).tolist()
     rinv = pow(field.R, -1, field.p)
     out = []
     for row in totals:

@@ -29,6 +29,7 @@ from zk_tpu_torch.fields.field import Field
 from zk_tpu_torch.transcript.keccak import _RC, _ROT
 from zk_tpu_torch import _cuda
 from zk_tpu_torch.fields import device as dev
+from zk_tpu_torch.utils.stat import to_host
 
 RATE = 136
 DIGEST = 32
@@ -245,7 +246,13 @@ def state_to_device(lanes, buf: bytes, device):
 
 def state_to_host(lo, hi, buf, pos: int):
     """Device state -> (25 lane ints, pending bytes) for
-    Transcript.import_state."""
+    Transcript.import_state: one read-back."""
+    flat = to_host(torch.cat([lo, hi, buf]))
+    return state_from_host(flat[:25], flat[25:50], flat[50:], pos)
+
+
+def state_from_host(lo, hi, buf, pos: int):
+    """``state_to_host`` of a state already read back (CPU tensors)."""
     lo_h, hi_h, buf_h = lo.tolist(), hi.tolist(), buf.tolist()
     lanes = [int(lo_h[i]) | (int(hi_h[i]) << 32) for i in range(25)]
     return lanes, bytes(int(x) & 0xFF for x in buf_h[:pos])

@@ -18,6 +18,7 @@ import subprocess
 import threading
 
 from zk_tpu_torch._cuda import BUILD_DIR, CSRC
+from zk_tpu_torch.utils.stat import span
 
 _SRC = CSRC / "keccak_host.c"
 _FLAGS = ("-O3", "-shared", "-fPIC")
@@ -33,7 +34,8 @@ def _build(cc: str):
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cc, *_FLAGS, "-o", str(tmp), str(_SRC)], capture_output=True, text=True)
+    with span("zk.build"):
+        proc = subprocess.run([cc, *_FLAGS, "-o", str(tmp), str(_SRC)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{cc} failed on {_SRC.name} (rc={proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
