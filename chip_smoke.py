@@ -44,8 +44,11 @@ one.  Phases, each an uncaught exception on failure:
   4. sumcheck main path at n = 24 (BLS12-381 Fr): MLE.evaluate,
      prove_partial (cold and warm), verify_partial and the oracle check,
      the host-transcript prove equal to the device-transcript prove, its
-     four kernels launched, one transcript_round a round and no
-     keccak_f1600 in a warm prove; then prove + verify in full at n = 20;
+     four kernels launched, a warm prove's launches exactly one
+     round_sums, 24 transcript_round and 23 fold_halfsums; the product of
+     two 2^24 factors at degree 2 (the benchmark's prod2 shape) proved by
+     both tiers, equal, its launches exactly 24 round_sums, 23 fold and
+     24 transcript_round; then prove + verify in full at n = 20;
   5. GKR main path: bench.py's 2 x 2^19-gate BLS12-381 circuit on inputs
      made on the card, a cold and 5 warm proves, the synced prove
      identical, verify (cold and warm) accepts, a flipped w_b is rejected,
@@ -904,9 +907,9 @@ def phase_tier_differential() -> None:
     log("tier differential n=14: device-transcript == synced-kernel == host-int proofs")
 
 
-def main_table(n: int) -> MLE:
+def main_table(n: int, seed: int = 7) -> MLE:
     """bench.py's table: random 16-bit limbs, top limb masked to 0x1FFF."""
-    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
     data = torch.randint(0, 1 << 16, (FR.n_limbs, 1 << n), generator=gen, device=DEVICE, dtype=torch.int32)
     data[FR.n_limbs - 1] &= 0x1FFF
     return MLE(FR, n, data)
@@ -957,6 +960,9 @@ def phase_main_path(reps: int = 5) -> dict:
     log(f"prove_partial 2^{n}: cold {prove_cold:.6f} s; warm {spread(proves)}")
     one = launches_of(lambda: SumcheckProver.prove_partial(pp, total, max_var_degree=1))
     assert_one_transcript_round(one, n, f"a warm 2^{n} prove_partial", keccak=False)
+    if one != {"round_sums": 1, "transcript_round": n, "fold_halfsums": n - 1}:
+        raise AssertionError(f"a warm 2^{n} prove_partial launched {one}: want 1 round_sums, {n} transcript_round "
+                             f"and {n - 1} fold_halfsums")
     log(f"one warm prove_partial 2^{n} launched {one}")
 
     t0 = time.perf_counter()
@@ -973,6 +979,19 @@ def phase_main_path(reps: int = 5) -> dict:
     if any(p != (proof, challenges) for p in host_proofs):
         raise AssertionError("host-transcript prove differs from the device-transcript prove")
     log(f"host-transcript prove_partial 2^{n} identical; {spread(host_runs)}")
+
+    other = main_table(n, seed=8)
+    pp2 = ProductPoly([poly, other])
+    total2 = dev.decode_ints(FR, dev.sum_mod(FR, FK.mont_mul(FR, poly.data, other.data)))[0]
+    got = []
+    one = launches_of(lambda: got.append(SumcheckProver.prove_partial(pp2, total2, max_var_degree=2)))
+    if one != {"round_sums": n, "fold": n - 1, "transcript_round": n}:
+        raise AssertionError(f"a 2^{n} two-factor degree-2 prove launched {one}: want {n} round_sums, {n - 1} fold "
+                             f"and {n} transcript_round")
+    if SumcheckProver.prove_partial(pp2, total2, max_var_degree=2, device_transcript=False) != got[0]:
+        raise AssertionError(f"two-factor degree-2 prove at 2^{n}: the synced tier differs from the device transcript")
+    log(f"two-factor degree-2 prove_partial 2^{n}: device transcript == synced tier; launched {one}")
+    del other, pp2
     counts = _cuda.launches()
     log(f"main-path kernel launches: {counts}")
     missing = [k for k in SUMCHECK_KERNELS if counts[k] == 0]

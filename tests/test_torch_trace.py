@@ -69,12 +69,14 @@ def test_sumcheck_layers_open_their_spans(statement):
     """One test for the sumcheck's layers (the tier-1 test count is a
     setting: ROADMAP, Open items)."""
     poly, claim = statement
-    # the device-transcript tier: a span a round, one read-back, all inside zk.prove
+    # the device-transcript tier: a span a round, one read-back of the round
+    # record, then one decode (the rows and the host tail), all inside zk.prove
     (proof, challenges), rs = ranges(lambda: prove(poly, claim))
     inner = names_in(only(rs, "zk.prove"), rs)
     assert len(inner) == len(rs) - 1
     assert inner.count("zk.prove.round") == 3 and inner.count("zk.sync") == 1
-    assert inner.count("zk.prove.start") == 1 and "zk.prove.decode" in inner
+    assert inner.count("zk.prove.start") == 1 and inner.count("zk.prove.decode") == 1
+    assert inner.index("zk.sync") < inner.index("zk.prove.decode")
     assert len(proof.round_polys) == N
 
     # the synced tier reads every round's sums back

@@ -93,20 +93,20 @@ def encode_ints(field: Field, values, *, device, mont: bool = True) -> torch.Ten
     return torch.from_numpy(np.ascontiguousarray(limbs.T.astype(np.int32))).to(device)
 
 
-def _canonical(field: Field, t: torch.Tensor, mont: bool) -> torch.Tensor:
-    """(L, N) limbs -> (L, N) int32 canonical limbs on t's device.
-    Montgomery un-scaling is one product by the integer 1 through the
-    mont_mul kernel wrapper: one launch on a card (the limb tier takes a few
-    hundred, which dominated a warm 2^24 MLE.evaluate), the plain version on
-    the CPU.  Limbs may come in any integer dtype (a prover's host readback
-    is int64)."""
+def _canonical(field: Field, t: torch.Tensor, mont: bool, out=None) -> torch.Tensor:
+    """(L, N) limbs -> (L, N) int32 canonical limbs on t's device (in
+    ``out`` if given).  Montgomery un-scaling is one product by the integer
+    1 through the mont_mul kernel wrapper: one launch on a card (the limb
+    tier takes a few hundred, which dominated a warm 2^24 MLE.evaluate),
+    the plain version on the CPU.  Limbs may come in any integer dtype (a
+    prover's host readback is int64)."""
     from zk_tpu_torch.fields import kernels  # the kernel layer imports this module
 
     t = t.reshape(field.n_limbs, -1).to(torch.int32).contiguous()
     if mont:
         one = cached_const(field, 1, False, t.device).expand(t.shape).contiguous()
-        t = kernels.mont_mul(field, t, one)
-    return t
+        return kernels.mont_mul(field, t, one, out=out)
+    return t if out is None else out.copy_(t)
 
 
 def _rows(t: torch.Tensor) -> np.ndarray:
@@ -114,11 +114,21 @@ def _rows(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(t.numpy().astype(np.uint16).T)
 
 
+def limb_ints(field: Field, limbs: np.ndarray) -> list[int]:
+    """Canonical limbs with the limb axis last ((..., L), any integer
+    dtype) -> Python ints in the order of the other axes: one numpy pass
+    to little-endian 16-bit words, then one ``int.from_bytes`` an
+    element."""
+    if limbs.shape[-1] != field.n_limbs:
+        raise ValueError(f"limbs must be (..., {field.n_limbs}), got {limbs.shape}")
+    data, w, from_bytes = np.ascontiguousarray(limbs, dtype="<u2").tobytes(), 2 * field.n_limbs, int.from_bytes
+    return [from_bytes(data[j : j + w], "little") for j in range(0, len(data), w)]
+
+
 def host_ints(field: Field, t: torch.Tensor, mont: bool = True) -> list[int]:
     """(L, N) limbs already read back (a CPU tensor) -> canonical Python
     ints, with no read of their own."""
-    data, w = _rows(_canonical(field, t, mont)).astype("<u2").tobytes(), 2 * field.n_limbs
-    return [int.from_bytes(data[j * w : (j + 1) * w], "little") for j in range(len(data) // w)]
+    return limb_ints(field, _canonical(field, t, mont).numpy().T)
 
 
 def decode_ints(field: Field, t: torch.Tensor, mont: bool = True) -> list[int]:

@@ -46,6 +46,13 @@ def field_params(field: Field) -> np.ndarray:
     return np.array(out, dtype=np.uint32)
 
 
+@functools.lru_cache(maxsize=None)
+def params_ptr(field: Field) -> int:
+    """The address of ``field_params(field)`` (its cache keeps the words
+    alive), for launches that take it every round."""
+    return field_params(field).ctypes.data
+
+
 def mont_words(field: Field, value: int) -> np.ndarray:
     """The Montgomery form of a host int as NW = L/2 uint32 words."""
     v = value * field.R % field.p
@@ -84,18 +91,23 @@ def _check_operands(field: Field, name: str, a: torch.Tensor, b: torch.Tensor) -
         raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def mont_mul_plain(field: Field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return dev.mont_mul(field, a, b)
+def mont_mul_plain(field: Field, a: torch.Tensor, b: torch.Tensor, out=None) -> torch.Tensor:
+    got = dev.mont_mul(field, a, b)
+    return got if out is None else out.copy_(got)
 
 
-def mont_mul(field: Field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Elementwise Montgomery product of two (L, N) limb tensors.  Replaces
+def mont_mul(field: Field, a: torch.Tensor, b: torch.Tensor, out=None) -> torch.Tensor:
+    """Elementwise Montgomery product of two (L, N) limb tensors, into
+    ``out`` (an int32 tensor of their shape) if given.  Replaces
     zk_tpu/fields/pallas_kernels.py::mont_mul_pallas."""
     _check_operands(field, "mont_mul", a, b)
+    if out is not None:
+        _check_operands(field, "mont_mul", a, out)
     if a.device.type == "cpu":
-        return mont_mul_plain(field, a, b)
-    check_cuda(field, "mont_mul", a, b)
-    out = torch.empty_like(a)
+        return mont_mul_plain(field, a, b, out)
+    check_cuda(field, "mont_mul", a, b, *(() if out is None else (out,)))
+    if out is None:
+        out = torch.empty_like(a)
     err = _cuda.lib().zk_mont_mul(
         field.n_limbs, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[1],
         field_params(field).ctypes.data, cuda_stream(a),

@@ -4,10 +4,11 @@ Counterpart of ``zk_tpu.gkr.chain``.  The per-phase prover
 (``GKRProver.prove`` with ``device_transcript=False``) reads every phase's
 round sums back and hashes on the host.  Here the whole per-layer protocol
 stays on the device: the sponge state (``transcript.device``), the
-sumcheck rounds (``capacity.run_device_rounds``, which also yields the
-Montgomery challenges), the eq expansion of the next phase, W(u) (a
-fold_multi chain at device challenges), the line restriction and its q
-evaluations, the [w_b, w_c] and q_evals absorption, the r* squeeze, and
+sumcheck rounds (a ``sumcheck.record.RoundRecord`` a phase, whose rows
+also hold the Montgomery challenges), the eq expansion of the next
+phase, W(u) (a fold_multi chain at device challenges), the line
+restriction and its q evaluations, the [w_b, w_c] and q_evals
+absorption, the r* squeeze, and
 the next layer's claim m = q(r*) at r = b* + r* (c* - b*).  The host syncs
 are the output-layer fetch (its bytes are proof data and the first
 transcript absorb) and one final read of every round polynomial, q_evals
@@ -29,7 +30,7 @@ from zk_tpu_torch.fields import device as dev
 from zk_tpu_torch.fields.field import Field
 from zk_tpu_torch.gkr import device as gdev
 from zk_tpu_torch.poly.mle import fold_var0
-from zk_tpu_torch.sumcheck import capacity as C
+from zk_tpu_torch.sumcheck.record import RoundRecord
 from zk_tpu_torch.transcript import Transcript
 from zk_tpu_torch.transcript import device as tdev
 from zk_tpu_torch.utils.stat import span, to_host
@@ -80,14 +81,16 @@ def _line_step(field: Field, pos: int, lo, hi, buf, w_dev, u_lk, v_lk):
 
 def _run_phase(field: Field, ks, tables, pos: int, lo, hi, buf):
     """All rounds of one phase sumcheck (degree 2) on the device over the
-    factor tables of the terms ks, concatenated into one fresh stack.
-    Returns (per-round (L, 3) canonical sums, (L, n) Montgomery
-    challenges, lo, hi, buf)."""
+    factor tables of the terms ks, concatenated into one fresh stack, in
+    one round record continuing the chain's sponge.  Returns ((n, L, 3)
+    canonical round sums, (L, n) Montgomery challenges, lo, hi, buf)."""
     L = field.n_limbs
     stack = torch.cat([t.reshape(1, L, -1) for t in tables])
     n_vars = stack.shape[-1].bit_length() - 1
-    sums, _, chs_mont, lo, hi, buf, _ = C.run_device_rounds(field, 2, ks, stack, n_vars, pos, False, lo, hi, buf)
-    return sums, torch.cat(chs_mont, dim=1), lo, hi, buf
+    record = RoundRecord(field, 2, ks, stack.device, (stack.shape[-1], n_vars, False))
+    record.attach(lo, hi, buf, pos)
+    record.queue(stack)
+    return (record.sums, record.chs_mont[:, :, 0].t().contiguous(), *record.sponge())
 
 
 def prove_chain(field: Field, circuit, inputs, device=None):
@@ -134,7 +137,7 @@ def prove_chain(field: Field, circuit, inputs, device=None):
             # line restriction, r*, and the next layer's (r, m)
             lo, hi, buf, q_canon, r_kl, m_mont = _line_step(field, 32, lo, hi, buf, w_dev, u_lk, v_lk)
             pos = 32
-            per_layer.append((m_layer, torch.stack(sums1 + sums2), q_canon))
+            per_layer.append((m_layer, torch.cat([sums1, sums2]), q_canon))
             del g1, a2, add_u, mul_u_s, w_shift, eq_r, eq_u
 
     with span("zk.gkr.parse_outputs"):  # overlaps the device's drain

@@ -42,12 +42,10 @@ from zk_tpu_torch.sumcheck import (
     absorb_poly,
     chain_rounds,
     host_rounds,
-    read_device_rounds,
 )
-from zk_tpu_torch.sumcheck import capacity as C
 from zk_tpu_torch.sumcheck import kernels as K
+from zk_tpu_torch.sumcheck.record import RoundRecord
 from zk_tpu_torch.transcript import Transcript
-from zk_tpu_torch.transcript import device as tdev
 
 
 class ShardedStack:
@@ -162,24 +160,16 @@ class ShardedSumcheckProver:
         challenges: list[int] = []
         sharded = chain_rounds(stack.shape[-1], local_tail, n_vars)
         if device_transcript:
-            lo, hi, buf, pos = tdev.state_to_device(*transcript.export_state(), device)
-            sums, chs = [], []
-            if sharded:
-                sums, chs, _, lo, hi, buf, stack = C.run_device_rounds(
-                    field, degree, ks, stack, sharded, pos, True, lo, hi, buf, reduce=reduce
-                )
-                pos = 32
-            table = gather(stack)
-            rounds = chain_rounds(table.shape[-1], tail, n_vars - sharded)
-            if rounds:
-                s2, c2, _, lo, hi, buf, table = C.run_device_rounds(
-                    field, degree, ks, table, rounds, pos, sharded + rounds < n_vars, lo, hi, buf
-                )
-                sums, chs = sums + s2, chs + c2
-            host = read_device_rounds(
-                field, degree, ks, sums, chs, lo, hi, buf, table if sharded + rounds < n_vars else None,
-                transcript, round_polys, challenges,
-            )
+            # one record for both phases: the sharded rounds, then the gathered table's
+            W = stack.shape[-1]
+            gathered = (W >> sharded) * D
+            rounds = chain_rounds(gathered, tail, n_vars - sharded)
+            record = RoundRecord(field, degree, ks, device, (W, sharded, True),
+                                 (gathered, rounds, sharded + rounds < n_vars))
+            record.upload(*transcript.export_state())
+            stack = record.queue(stack, reduce=reduce)
+            record.read(transcript, round_polys, challenges, n_vars, record.queue(gather(stack)))
+            host = None
         else:
             if sharded:
                 stack = SumcheckProver._synced_rounds(

@@ -5,8 +5,9 @@ with the same proofs, challenges and serialization.  Prover tiers, picked
 per table:
 
   * device transcript (default on CUDA for p > 2^32): every round on the
-    device — round sums, Fiat-Shamir absorb/squeeze, fused fold — with one
-    host sync at the end of the prove (``capacity.run_device_rounds``);
+    device — round sums, Fiat-Shamir absorb/squeeze, fused fold — queued
+    into one planned round record, with one host sync at the end of the
+    prove (``record.RoundRecord``);
   * synced (device_transcript=False): the same table kernels, but the
     sums come to the host every round and the host Transcript absorbs and
     squeezes — the differential tier for the device transcript;
@@ -35,7 +36,7 @@ from zk_tpu_torch.poly.product import terms_of
 from zk_tpu_torch.poly.univariate import UnivariatePolynomial
 from zk_tpu_torch.sumcheck import capacity as C
 from zk_tpu_torch.sumcheck import kernels as K
-from zk_tpu_torch.transcript import device as tdev
+from zk_tpu_torch.sumcheck.record import RoundRecord
 from zk_tpu_torch.utils.stat import span, to_host
 
 
@@ -81,22 +82,11 @@ def _canonical_rows(field: Field, table) -> torch.Tensor:
     return dev._canonical(field, table.permute(1, 0, 2).reshape(L, rows * n), True)
 
 
-def _host_tables(field: Field, ks, limbs, n: int) -> K.HostTables:
-    """(L, rows * n) canonical limbs, read back, -> HostTables: rows of n
-    entries split into the terms ks."""
-    ints = dev.host_ints(field, limbs, mont=False)
-    rows = [ints[i : i + n] for i in range(0, len(ints), n)]
-    terms, row = [], 0
-    for k in ks:
-        terms.append(rows[row : row + k])
-        row += k
-    return K.HostTables(field, terms)
-
-
 def _decode_host_tables(field: Field, ks, table) -> K.HostTables:
     """(sum(ks), L, n) Montgomery factor rows -> HostTables split into the
     terms ks: un-scaled where they lie, then one read."""
-    return _host_tables(field, ks, to_host(_canonical_rows(field, table)), table.shape[-1])
+    return K.HostTables.of_rows(field, ks, dev.host_ints(field, to_host(_canonical_rows(field, table)), mont=False),
+                                table.shape[-1])
 
 
 class SumcheckProver:
@@ -173,12 +163,11 @@ class SumcheckProver:
                         stack = terms[0][0].reshape(1, L, size)  # a view: never written
                     else:  # a fresh buffer, folded in place
                         stack = torch.cat([t.reshape(1, L, size) for term in terms for t in term])
-                    sponge = tdev.state_to_device(*transcript.export_state(), device) if device_transcript else None
+                    if device_transcript:
+                        record = SumcheckProver._plan(field, degree, ks, size, n_vars, tail, tail_size is None, device)
+                        record.upload(*transcript.export_state())
                 if device_transcript:
-                    host_tables = SumcheckProver._device_rounds(
-                        field, degree, ks, stack, sponge, n_vars, tail, tail_size is None, transcript,
-                        round_polys, challenges,
-                    )
+                    record.read(transcript, round_polys, challenges, n_vars, record.queue(stack))
                 else:
                     table = SumcheckProver._synced_rounds(
                         field, degree, ks, stack, n_vars, tail, transcript, round_polys, challenges
@@ -191,29 +180,21 @@ class SumcheckProver:
             return SumcheckProof(sum=sum, round_polys=round_polys), challenges
 
     @staticmethod
-    def _device_rounds(field, degree, ks, stack, sponge, n_vars, tail, default_tail, transcript, round_polys,
-                       challenges):
-        """Device-resident Fiat-Shamir: every round is queued on the device
-        and ONE host sync at the end reads the round polys, challenges,
-        sponge state (and the table, when a host tail follows).  On CUDA
-        every round runs on the device; on the CPU the last tables of up
-        to 128 elements finish on host ints, as in the reference (there a
-        device round is hundreds of small torch ops, dearer than the host
-        tail's bigint products).  An explicit tail_size wins.  ``sponge``:
-        (lo, hi, buf, pos) on the device."""
-        lo, hi, buf, pos = sponge
+    def _plan(field, degree, ks, size, n_vars, tail, default_tail, device) -> RoundRecord:
+        """Device-resident Fiat-Shamir: the round record of a prove, planned
+        with its device rounds.  Every round is queued into the record and ONE host
+        sync at the end reads the round polys, challenges, sponge state
+        (and the table, when a host tail follows).  On CUDA every round
+        runs on the device; on the CPU the last tables of up to 128
+        elements finish on host ints, as in the reference (there a device
+        round is hundreds of small torch ops, dearer than the host tail's
+        bigint products).  An explicit tail_size wins."""
         if default_tail:
-            chain_tail = 1 if stack.device.type == "cuda" else min(128, tail)
+            chain_tail = 1 if device.type == "cuda" else min(128, tail)
         else:
             chain_tail = tail
-        rounds = chain_rounds(stack.shape[-1], chain_tail, n_vars)
-        sums, chs, _, lo, hi, buf, table = C.run_device_rounds(
-            field, degree, ks, stack, rounds, pos, rounds < n_vars, lo, hi, buf
-        )
-        return read_device_rounds(
-            field, degree, ks, sums, chs, lo, hi, buf, table if rounds < n_vars else None,
-            transcript, round_polys, challenges,
-        )
+        rounds = chain_rounds(size, chain_tail, n_vars)
+        return RoundRecord(field, degree, ks, device, (size, rounds, rounds < n_vars))
 
     @staticmethod
     def _synced_rounds(field, degree, ks, stack, n_vars, tail, transcript, round_polys, challenges, reduce=None):
@@ -221,7 +202,7 @@ class SumcheckProver:
         sums read back and absorbed by the host Transcript every round,
         while the table is larger than ``tail``.  Returns the live table
         (None once every round is done).  ``reduce`` as in
-        ``capacity.run_device_rounds``."""
+        ``record.RoundRecord.queue``."""
         size = stack.shape[-1]
         deg1 = (degree, ks) == (1, (1,))
         acc = C.term_sums(field, degree, ks, stack, size)
@@ -253,13 +234,7 @@ def host_rounds(field, degree, host, n_vars, transcript, round_polys, challenges
     if len(challenges) == n_vars:
         return
     with span("zk.prove.decode"):
-        for _ in range(n_vars - len(challenges)):
-            round_poly = host.round_sums(degree)
-            transcript.append(field.elements_to_bytes(round_poly))
-            challenge = transcript.sample_field_element(field)
-            host = host.fold(challenge)
-            round_polys.append(round_poly)
-            challenges.append(challenge)
+        host.rounds(degree, n_vars - len(challenges), transcript, round_polys, challenges)
 
 
 def chain_rounds(size: int, chain_tail: int, n_vars: int) -> int:
@@ -270,29 +245,6 @@ def chain_rounds(size: int, chain_tail: int, n_vars: int) -> int:
         rounds += 1
         size //= 2
     return rounds
-
-
-def read_device_rounds(field, degree, ks, sums, chs, lo, hi, buf, table, transcript, round_polys, challenges):
-    """The one host sync of a device-transcript prove: read the rounds'
-    canonical sums and challenges ((L, D+1) and (L, 1) device tensors),
-    the sponge (restored into ``transcript``) and, for a host tail, the
-    live ``table``, returned as HostTables (else None)."""
-    L = field.n_limbs
-    parts = [torch.stack(sums), torch.stack(chs), lo, hi, buf] if sums else [lo, hi, buf]
-    if table is not None:
-        parts.append(_canonical_rows(field, table))
-    flat = to_host(torch.cat([t.reshape(-1).long() for t in parts]))  # the one sync
-    with span("zk.prove.decode"):
-        got = list(torch.split(flat, [t.numel() for t in parts]))
-        if sums:
-            got_sums, got_chs = got.pop(0).reshape(len(sums), L, degree + 1), got.pop(0).reshape(len(sums), L, 1)
-            for total, ch in zip(got_sums, got_chs):
-                round_polys.append(dev.host_ints(field, total, mont=False))
-                challenges.append(dev.host_ints(field, ch, mont=False)[0])
-            transcript.import_state(*tdev.state_from_host(got[0], got[1], got[2], 32))
-        if table is None:
-            return None
-        return _host_tables(field, ks, got[3].reshape(L, -1), table.shape[-1])
 
 
 # --------------------------------------------------------------------------

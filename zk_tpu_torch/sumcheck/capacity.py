@@ -1,5 +1,4 @@
-"""Table kernels of the sumcheck prover and MLE evaluation, and the
-device round loop.
+"""Table kernels of the sumcheck prover and MLE evaluation.
 
 Counterpart of ``zk_tpu.sumcheck.capacity``.  Five wrappers, each of a
 hand-written CUDA kernel in csrc/capacity.cu, with the plain torch version
@@ -21,7 +20,9 @@ of every row holds the table (``size`` a power of two).  A fold writes
 its output to ``out``: the stack itself (in place over the prefix) or a
 fresh buffer.  A wrapper
 runs the plain version for CPU tensors and launches its kernel for CUDA
-tensors; there is no other fallback.
+tensors; there is no other fallback.  Each kernel's ``*_args`` builds its
+launch arguments from data pointers, for the wrapper and for the round
+record (``sumcheck.record``), which launches with pointers it took once.
 
 Sums come back as ``(P, L, G)`` int64 partial accumulators: partial g
 holds the raw limb sums, over the pair indices of chunk g (see
@@ -38,8 +39,7 @@ import torch
 from zk_tpu_torch.fields.field import Field
 from zk_tpu_torch import _cuda
 from zk_tpu_torch.fields import device as dev
-from zk_tpu_torch.fields.kernels import check_cuda, cuda_stream, field_params
-from zk_tpu_torch.utils.stat import span
+from zk_tpu_torch.fields.kernels import check_cuda, cuda_stream, params_ptr
 
 THREADS = 256  # csrc/capacity.cu THREADS
 MAX_PARTIALS = 1024  # blocks (= partial accumulators) of a sums kernel
@@ -117,6 +117,12 @@ def fold_multi_plain(field: Field, stack, size: int, rs, out):
     return out
 
 
+def fold_multi_args(field: Field, f: int, src: int, src_cap: int, dst: int, dst_cap: int, n_out: int, rs: int,
+                    stream):
+    """zk_fold_multi's arguments, from data pointers and row capacities."""
+    return (field.n_limbs, f, src, src_cap, dst, dst_cap, n_out, rs, params_ptr(field), stream)
+
+
 def fold_multi(field: Field, stack, size: int, rs, out):
     """Fold f = rs.shape[1] (1..4) MSB variables of the live prefix of a
     (1, L, cap) stack in one pass; rs is (L, f) int32 Montgomery scalars,
@@ -134,10 +140,10 @@ def fold_multi(field: Field, stack, size: int, rs, out):
     if stack.device.type == "cpu":
         return fold_multi_plain(field, stack, size, rs, out)
     check_cuda(field, "fold_multi", stack, rs, out)
-    err = _cuda.lib().zk_fold_multi(
-        field.n_limbs, f, stack.data_ptr(), stack.shape[2], out.data_ptr(), out.shape[2],
-        n_out, rs.data_ptr(), field_params(field).ctypes.data, cuda_stream(stack),
-    )
+    err = _cuda.lib().zk_fold_multi(*fold_multi_args(
+        field, f, stack.data_ptr(), stack.shape[2], out.data_ptr(), out.shape[2], n_out, rs.data_ptr(),
+        cuda_stream(stack),
+    ))
     _cuda.check(err, "fold_multi")
     _cuda.count_launch("fold_multi")
     return out
@@ -154,6 +160,13 @@ def round_sums_plain(field: Field, degree: int, stack, size: int):
     return round_sums_terms_plain(field, degree, (stack.shape[0],), stack, size)
 
 
+def round_sums_args(field: Field, degree: int, k: int, src: int, cap: int, size: int, partials: int, stream):
+    """zk_round_sums's arguments: the G = partition(size / 2) partials."""
+    G, chunk = partition(size // 2)
+    L = field.n_limbs
+    return (L, degree, k, src, L * cap, cap, size // 2, chunk, G, params_ptr(field), partials, stream)
+
+
 def round_sums(field: Field, degree: int, stack, size: int):
     """All D+1 round-polynomial sums over the live prefix [0, size) of a
     (k, L, cap) stack, as (D+1, L, G) int64 partial accumulators.  Points
@@ -168,13 +181,11 @@ def round_sums(field: Field, degree: int, stack, size: int):
     check_cuda(field, "round_sums", stack)
     if (degree, k) not in ROUND_SUMS_SHAPES:
         raise ValueError(f"round_sums: no kernel for (degree, k) = {(degree, k)}")
-    G, chunk = partition(size // 2)
+    G = partition(size // 2)[0]
     partials = torch.empty((degree + 1, field.n_limbs, G), dtype=torch.int64, device=stack.device)
-    err = _cuda.lib().zk_round_sums(
-        field.n_limbs, degree, k, stack.data_ptr(), field.n_limbs * stack.shape[2],
-        stack.shape[2], size // 2, chunk, G, field_params(field).ctypes.data,
-        partials.data_ptr(), cuda_stream(stack),
-    )
+    err = _cuda.lib().zk_round_sums(*round_sums_args(
+        field, degree, k, stack.data_ptr(), stack.shape[2], size, partials.data_ptr(), cuda_stream(stack)
+    ))
     _cuda.check(err, "round_sums")
     _cuda.count_launch("round_sums")
     return partials
@@ -212,6 +223,16 @@ def round_sums_terms_plain(field: Field, degree: int, term_ks, stack, size: int)
     return _partials_plain(torch.stack(contrib), len(term_ks))
 
 
+def round_sums_terms_args(field: Field, degree: int, term_ks, src: int, cap: int, size: int, partials: int,
+                         stream):
+    """zk_round_sums_terms's arguments: the G = partition(size / 2, terms)
+    partials."""
+    G, chunk = partition(size // 2, len(term_ks))
+    L = field.n_limbs
+    return (L, degree, term_ks[0], term_ks[1], src, L * cap, cap, size // 2, chunk, G,
+            params_ptr(field), partials, stream)
+
+
 def round_sums_terms(field: Field, degree: int, term_ks, stack, size: int):
     """All D+1 round-polynomial sums of a sum of products over the live
     prefix [0, size) of a (sum(term_ks), L, cap) stack, as (D+1, L, G)
@@ -224,18 +245,16 @@ def round_sums_terms(field: Field, degree: int, term_ks, stack, size: int):
         raise ValueError(f"round_sums_terms: term sizes {term_ks} do not split {stack.shape[0]} rows")
     if not 1 <= degree <= MAX_DEGREE:
         raise ValueError(f"round_sums_terms: degree {degree} not in 1..{MAX_DEGREE}")
-    G, chunk = partition(size // 2, len(term_ks))
     if stack.device.type == "cpu":
         return round_sums_terms_plain(field, degree, term_ks, stack, size)
     check_cuda(field, "round_sums_terms", stack)
     if (degree, term_ks) not in ROUND_SUMS_TERMS_SHAPES:
         raise ValueError(f"round_sums_terms: no kernel for (degree, term_ks) = {(degree, term_ks)}")
+    G = partition(size // 2, len(term_ks))[0]
     partials = torch.empty((degree + 1, field.n_limbs, G), dtype=torch.int64, device=stack.device)
-    err = _cuda.lib().zk_round_sums_terms(
-        field.n_limbs, degree, term_ks[0], term_ks[1], stack.data_ptr(),
-        field.n_limbs * stack.shape[2], stack.shape[2], size // 2, chunk, G,
-        field_params(field).ctypes.data, partials.data_ptr(), cuda_stream(stack),
-    )
+    err = _cuda.lib().zk_round_sums_terms(*round_sums_terms_args(
+        field, degree, term_ks, stack.data_ptr(), stack.shape[2], size, partials.data_ptr(), cuda_stream(stack)
+    ))
     _cuda.check(err, "round_sums_terms")
     _cuda.count_launch("round_sums_terms")
     return partials
@@ -261,6 +280,13 @@ def fold_plain(field: Field, stack, size: int, r, out):
     return out
 
 
+def fold_args(field: Field, k: int, src: int, src_cap: int, dst: int, dst_cap: int, size: int, r: int, stream):
+    """zk_fold's arguments, from data pointers and row capacities."""
+    L = field.n_limbs
+    return (L, k, src, L * src_cap, src_cap, dst, L * dst_cap, dst_cap, size // 2, r,
+            params_ptr(field), stream)
+
+
 def fold(field: Field, stack, size: int, r, out):
     """Fold every factor of the live prefix of a (K, L, cap) stack at r
     ((L, 1) int32 Montgomery): out[t, :, e] = lerp(stack[t, :, e],
@@ -278,11 +304,10 @@ def fold(field: Field, stack, size: int, r, out):
     K = stack.shape[0]
     if K > FOLD_MAX_FACTORS:
         raise ValueError(f"fold: no kernel for {K} factors (at most {FOLD_MAX_FACTORS})")
-    err = _cuda.lib().zk_fold(
-        field.n_limbs, K, stack.data_ptr(), field.n_limbs * stack.shape[2], stack.shape[2],
-        out.data_ptr(), field.n_limbs * out.shape[2], out.shape[2], half, r.data_ptr(),
-        field_params(field).ctypes.data, cuda_stream(stack),
-    )
+    err = _cuda.lib().zk_fold(*fold_args(
+        field, K, stack.data_ptr(), stack.shape[2], out.data_ptr(), out.shape[2], size, r.data_ptr(),
+        cuda_stream(stack),
+    ))
     _cuda.check(err, "fold")
     _cuda.count_launch("fold")
     return out
@@ -305,6 +330,15 @@ def fold_halfsums_plain(field: Field, stack, size: int, r, out):
     return out, _partials_plain(contrib)
 
 
+def fold_halfsums_args(field: Field, src: int, src_cap: int, dst: int, dst_cap: int, size: int, r: int,
+                       partials: int, stream):
+    """zk_fold_halfsums's arguments: the G = partition(size / 2) partials."""
+    half = size // 2
+    G, chunk = partition(half)
+    return (field.n_limbs, src, src_cap, dst, dst_cap, half, chunk, G, r, params_ptr(field),
+            partials, stream)
+
+
 def fold_halfsums(field: Field, stack, size: int, r, out):
     """Fused degree-1 single-factor round: fold the (1, L, cap) prefix at
     r ((L, 1) int32 Montgomery) into out[0, :, :size/2] (out may be the
@@ -321,76 +355,11 @@ def fold_halfsums(field: Field, stack, size: int, r, out):
     if stack.device.type == "cpu":
         return fold_halfsums_plain(field, stack, size, r, out)
     check_cuda(field, "fold_halfsums", stack, r, out)
-    G, chunk = partition(half)
-    partials = torch.empty((2, field.n_limbs, G), dtype=torch.int64, device=stack.device)
-    err = _cuda.lib().zk_fold_halfsums(
-        field.n_limbs, stack.data_ptr(), stack.shape[2], out.data_ptr(), out.shape[2], half,
-        chunk, G, r.data_ptr(), field_params(field).ctypes.data, partials.data_ptr(),
-        cuda_stream(stack),
-    )
+    acc = torch.empty((2, field.n_limbs, partition(half)[0]), dtype=torch.int64, device=stack.device)
+    err = _cuda.lib().zk_fold_halfsums(*fold_halfsums_args(
+        field, stack.data_ptr(), stack.shape[2], out.data_ptr(), out.shape[2], size, r.data_ptr(),
+        acc.data_ptr(), cuda_stream(stack),
+    ))
     _cuda.check(err, "fold_halfsums")
     _cuda.count_launch("fold_halfsums")
-    return out, partials
-
-
-# --------------------------------------------------------------------------
-# device round loop
-# --------------------------------------------------------------------------
-
-
-def run_device_rounds(field: Field, degree: int, ks, stack, rounds: int, pos: int, fold_last: bool, lo, hi, buf,
-                      reduce=None):
-    """Every device-resident round of a prove (prover.rs:44-68): per round
-    the Fiat-Shamir step on the pending sums (absorb, squeeze, challenge,
-    all on the device), then the fold at the fresh challenge and the
-    folded table's sums for the next round.  Nothing here waits on the
-    device; the caller makes the one sync.
-
-    ks: factors per product term; stack: (sum(ks), L, n), the terms'
-    factor tables in order.  Degree 1 with one factor, ks = (1,), fuses
-    fold and next sums (fold_halfsums) and does not modify ``stack`` (the
-    first fold writes a fresh half-size buffer).  Every other shape runs
-    fold + round_sums / round_sums_terms per round and folds ``stack`` in
-    place: the caller passes a fresh buffer (the concatenated terms).
-
-    ``reduce`` (the sharded prover's): called on every round's partials
-    before the Fiat-Shamir step, it returns the partials of the whole
-    table (one collective across the mesh).
-
-    Returns (per-round sums [(L, D+1) canonical], challenges [(L, 1)
-    canonical], challenges [(L, 1) Montgomery, for device consumers such
-    as the GKR layer chain], lo, hi, buf, final stack (live prefix only)).
-    The final stack is folded past the last round iff fold_last (the host
-    tail continues from it)."""
-    from zk_tpu_torch.sumcheck import kernels as K
-
-    ks = tuple(ks)
-    deg1 = (degree, ks) == (1, (1,))
-    size = stack.shape[-1]
-    acc = term_sums(field, degree, ks, stack, size)
-    sums, chs, chs_mont = [], [], []
-    owned = not deg1  # a degree-1 prove's first fold writes a fresh buffer
-    p = pos
-    for rnd in range(rounds):
-        with span("zk.prove.round"):
-            last = rnd == rounds - 1
-            if reduce is not None:
-                acc = reduce(acc)
-            lo, hi, buf, total, ch_c, ch_m = K.transcript_round(field, p, lo, hi, buf, acc)
-            if not last or fold_last:
-                out = stack if owned else stack.new_empty(stack.shape[:2] + (size // 2,))
-                if not deg1:
-                    stack = fold(field, stack, size, ch_m, out=out)
-                    if not last:
-                        acc = term_sums(field, degree, ks, stack, size // 2)
-                elif not last:
-                    stack, acc = fold_halfsums(field, stack, size, ch_m, out=out)
-                else:
-                    stack = fold_multi(field, stack, size, ch_m, out=out)
-                owned = True
-                size //= 2
-            p = 32
-            sums.append(total)
-            chs.append(ch_c)
-            chs_mont.append(ch_m)
-    return sums, chs, chs_mont, lo, hi, buf, stack[:, :, :size]
+    return out, acc

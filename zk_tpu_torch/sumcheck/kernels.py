@@ -79,6 +79,21 @@ def _round_params(field: Field) -> np.ndarray:
     return np.concatenate([field_params(field), np.array(r2, dtype=np.uint32)])
 
 
+@functools.lru_cache(maxsize=None)
+def _round_params_ptr(field: Field) -> int:
+    return _round_params(field).ctypes.data
+
+
+def transcript_round_args(field: Field, partials: int, P: int, G: int, sponge, pos: int, out, stream):
+    """zk_transcript_round's arguments from data pointers: ``sponge`` the
+    (lo, hi, buf) read, ``out`` the (lo, hi, buf, sums, canonical
+    challenge, Montgomery challenge) written."""
+    lo, hi, buf = sponge
+    out_lo, out_hi, out_buf, total, canon, mont = out
+    return (field.n_limbs, partials, P, G, lo, hi, buf, pos, _round_params_ptr(field), out_lo, out_hi,
+            out_buf, total, canon, mont, stream)
+
+
 def transcript_round(field: Field, pos: int, lo, hi, buf, partials: torch.Tensor):
     """One Fiat-Shamir round of the device prover, the same function as
     ``transcript_round_plain``: one launch of csrc/transcript.cu on a CUDA
@@ -100,19 +115,17 @@ def transcript_round(field: Field, pos: int, lo, hi, buf, partials: torch.Tensor
         raise ValueError(f"transcript_round: no kernel for G = {G} partials of {field.name}")
     if lo.dtype != torch.int64 or hi.dtype != torch.int64 or buf.dtype != torch.int64:
         raise ValueError("transcript_round: the sponge must be int64 tensors")
-    out_lo, out_hi = torch.empty_like(lo), torch.empty_like(hi)
-    out_buf = torch.empty_like(buf)
-    total = torch.empty((L, P), dtype=torch.int32, device=partials.device)
-    canon = torch.empty((L, 1), dtype=torch.int32, device=partials.device)
-    mont = torch.empty((L, 1), dtype=torch.int32, device=partials.device)
-    err = _cuda.lib().zk_transcript_round(
-        L, partials.data_ptr(), P, G, lo.data_ptr(), hi.data_ptr(), buf.data_ptr(), pos,
-        _round_params(field).ctypes.data, out_lo.data_ptr(), out_hi.data_ptr(), out_buf.data_ptr(),
-        total.data_ptr(), canon.data_ptr(), mont.data_ptr(), cuda_stream(partials),
-    )
+    out = (torch.empty_like(lo), torch.empty_like(hi), torch.empty_like(buf),
+           torch.empty((L, P), dtype=torch.int32, device=partials.device),
+           torch.empty((L, 1), dtype=torch.int32, device=partials.device),
+           torch.empty((L, 1), dtype=torch.int32, device=partials.device))
+    err = _cuda.lib().zk_transcript_round(*transcript_round_args(
+        field, partials.data_ptr(), P, G, (lo.data_ptr(), hi.data_ptr(), buf.data_ptr()), pos,
+        [t.data_ptr() for t in out], cuda_stream(partials),
+    ))
     _cuda.check(err, "transcript_round")
     _cuda.count_launch("transcript_round")
-    return out_lo, out_hi, out_buf, total, canon, mont
+    return tuple(out)
 
 
 class HostTables:
@@ -121,6 +134,16 @@ class HostTables:
     def __init__(self, field: Field, terms: list[list[list[int]]]):
         self.field = field
         self.terms = terms
+
+    @classmethod
+    def of_rows(cls, field: Field, ks, ints: list[int], n: int) -> "HostTables":
+        """Rows of n ints, one factor a row, split into the terms ks."""
+        rows = [ints[i : i + n] for i in range(0, len(ints), n)]
+        terms, row = [], 0
+        for k in ks:
+            terms.append(rows[row : row + k])
+            row += k
+        return cls(field, terms)
 
     @property
     def size(self) -> int:
@@ -147,6 +170,17 @@ class HostTables:
                     total = (total + prod) % f.p
             sums.append(total)
         return sums
+
+    def rounds(self, degree: int, count: int, transcript, round_polys, challenges) -> None:
+        """``count`` rounds in exact ints: sums, absorb, challenge, fold."""
+        host = self
+        for _ in range(count):
+            round_poly = host.round_sums(degree)
+            transcript.append(self.field.elements_to_bytes(round_poly))
+            challenge = transcript.sample_field_element(self.field)
+            host = host.fold(challenge)
+            round_polys.append(round_poly)
+            challenges.append(challenge)
 
     def fold(self, r: int) -> "HostTables":
         f = self.field

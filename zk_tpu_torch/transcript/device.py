@@ -235,13 +235,29 @@ def serialize_canonical(field: Field, elems):
 # --------------------------------------------------------------------------
 
 
+STATE_WORDS = 25 + 25 + RATE  # lo, hi, buf: a sponge state as one int64 vector
+
+
+def state_words(lanes, buf: bytes, out: np.ndarray) -> None:
+    """Host sponge state (25 lane ints, pending bytes) -> lo, hi, buf in
+    the (STATE_WORDS,) int64 array ``out``."""
+    out[:25] = [l & _M32 for l in lanes]
+    out[25:50] = [l >> 32 for l in lanes]
+    out[50:] = 0
+    out[50 : 50 + len(buf)] = np.frombuffer(bytes(buf), dtype=np.uint8)
+
+
+def split_state(words: torch.Tensor):
+    """A (STATE_WORDS,) int64 tensor -> its (lo, hi, buf) views."""
+    return words[:25], words[25:50], words[50:]
+
+
 def state_to_device(lanes, buf: bytes, device):
-    """Host sponge state (25 lane ints, pending bytes) -> (lo, hi, buf, pos)."""
-    lo = torch.tensor([l & _M32 for l in lanes], dtype=torch.int64)
-    hi = torch.tensor([l >> 32 for l in lanes], dtype=torch.int64)
-    b = torch.zeros(RATE, dtype=torch.int64)
-    b[: len(buf)] = torch.tensor(list(bytes(buf)), dtype=torch.int64)
-    return lo.to(device), hi.to(device), b.to(device), len(buf)
+    """Host sponge state (25 lane ints, pending bytes) -> (lo, hi, buf, pos):
+    views of one (STATE_WORDS,) tensor, uploaded in one copy."""
+    words = np.empty(STATE_WORDS, dtype=np.int64)
+    state_words(lanes, buf, words)
+    return (*split_state(torch.from_numpy(words).to(device)), len(buf))
 
 
 def state_to_host(lo, hi, buf, pos: int):
@@ -252,7 +268,7 @@ def state_to_host(lo, hi, buf, pos: int):
 
 
 def state_from_host(lo, hi, buf, pos: int):
-    """``state_to_host`` of a state already read back (CPU tensors)."""
-    lo_h, hi_h, buf_h = lo.tolist(), hi.tolist(), buf.tolist()
-    lanes = [int(lo_h[i]) | (int(hi_h[i]) << 32) for i in range(25)]
-    return lanes, bytes(int(x) & 0xFF for x in buf_h[:pos])
+    """``state_to_host`` of a state already read back (CPU tensors or
+    numpy arrays)."""
+    lo, hi = np.asarray(lo).astype(np.uint64), np.asarray(hi).astype(np.uint64)
+    return ((hi << np.uint64(32)) | lo).tolist(), np.asarray(buf)[:pos].astype(np.uint8).tobytes()

@@ -13,9 +13,9 @@ counts every host sync and times its wait for the device's queue.
 The spans:
 
   zk.prove                  a sumcheck prove (SumcheckProver)
-  zk.prove.start            the stack (a fresh copy for a product) and the sponge's upload
+  zk.prove.start            the stack (a fresh copy for a product), the round record's plan, the sponge's upload
   zk.prove.round            one round queued (a synced round: with its read-back)
-  zk.prove.decode           round polynomials, challenges and sponge as ints; the host tail
+  zk.prove.decode           the read-back round record as ints, the sponge restored; the host tail
   zk.sync                   one device -> host read, its wait included
   zk.proof.to_bytes / zk.proof.from_bytes   serialisation
   zk.verify                 the sumcheck verifier's round checks
