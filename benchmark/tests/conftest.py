@@ -1,5 +1,12 @@
 """Shared fixtures of the benchmark's tests: cells cut to sizes a CPU run
-holds, and the card check for the tests that need one."""
+holds, and the card check for the tests that need one.
+
+What the shared tests need of a job kind sits in a file of its own,
+benchmark/tests/kinds/<kind>.py, found by the kind's name as the harness
+finds benchmark/jobs/<kind>.py: ``SMALL``, the configuration's sizes on
+the CPU; ``faults(job)``, the faults that break its timed path; and
+``SPANS_EXACT`` / ``SPANS_CARD_ONLY``, what its span readers read on a
+traced CPU run."""
 
 from __future__ import annotations
 
@@ -7,14 +14,16 @@ import pytest
 
 from benchmark import harness
 
-# the same cells at sizes a test run on the CPU holds, above the table size
-# (2^11) at or below which the CPU tier finishes a sumcheck on host ints
-SMALL = {"sumcheck": {"n_vars": 12}}
+
+def kind_tests(job: str, root=harness.ROOT):
+    """benchmark/tests/kinds/<job>.py of the checkout at root."""
+    return harness.load_module("tests/kinds", job, root)
 
 
 def small_cell(name: str, root=harness.ROOT) -> harness.Cell:
+    """The cell with its kind's sizes for a test run on the CPU."""
     cell = harness.load_cell(name, root)
-    cell.config.update(SMALL[cell.config["job"]])
+    cell.config.update(kind_tests(cell.config["job"], root).SMALL)
     return cell
 
 

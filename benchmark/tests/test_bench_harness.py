@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from benchmark import harness
-from benchmark.tests.conftest import cells, small_cell
+from benchmark.tests.conftest import cells, kind_tests, small_cell
 
 ROOT = harness.ROOT
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -78,7 +78,7 @@ def test_traced_line_has_busy_window_and_breakdown():
     assert list(line) == ["correct", "attempted", "failed", "metrics", "device", "breakdown", "checks"]
     assert {"busy_s", "window_s"} <= set(line["device"])
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
-    assert "mle_eval_mults_per_s" in line["metrics"] and "prove_s" not in line["metrics"]
+    assert "verify_s.deg1" in line["metrics"] and "prove_s" not in line["metrics"]
 
 
 def test_seed_fixes_the_inputs():
@@ -118,6 +118,73 @@ def test_a_cell_config_and_metric_are_added_by_files_alone(tmp_path):
     assert line["metrics"]["jobs_done"]["value"] == line["attempted"]
     assert "jobs_done" not in harness.run(small_cell("sumcheck-bls381-n24-deg1", tmp_path), 5, 0.1, False, "cpu",
                                           time.perf_counter())[0]["metrics"]
+
+
+TOY_JOB = '''"""A throwaway job kind: sum a row of integers."""
+import torch
+
+
+def setup(config, traffic, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, 1000, (traffic["pool"], config["size"]), generator=gen, device=device)
+
+
+def total(row):
+    return int(row.sum())
+
+
+def job(state, i, clock):
+    s = total(state[i])
+    clock.step("verify")
+    return s
+
+
+def check(state, records):
+    return [("sums_wrong", sum(s != sum(state[i].tolist()) for i, s in records), 0)]
+
+
+def control(state, statements):
+    return [("sums_wrong", len(statements), 0)]
+'''
+
+TOY_TESTS = '''SMALL = {"size": 64}
+SPANS_EXACT = {}
+SPANS_CARD_ONLY = ()
+
+
+def faults(job):
+    yield "answer altered", [(job, "total", lambda row: int(row.sum()) + 1)]
+'''
+
+
+def test_a_job_kind_is_added_by_files_alone(tmp_path, monkeypatch):
+    """A new kind brings its job, its configuration, its cell and its test
+    file (size and faults), and the harness and the shared test fixtures
+    take it as they are."""
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    shutil.copytree(ROOT / "benchmark", tmp_path / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    (tmp_path / "benchmark/jobs/toy.py").write_text(TOY_JOB)
+    (tmp_path / "benchmark/tests/kinds/toy.py").write_text(TOY_TESTS)
+    (tmp_path / "benchmark/configs/toy-sum.json").write_text(json.dumps({"job": "toy", "size": 1 << 20, "reduced": []}))
+    (tmp_path / "benchmark/workloads/toy-cell.json").write_text(json.dumps(
+        {"config": "toy-sum", "why": "a dummy", "traffic": {"name": "closed1-toy", "pool": 3, "trace_jobs": 2}}))
+    b = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    b["configs"].append({"name": "toy-sum", "source": "https://example.org/x", "reduced": [],
+                         "file": "benchmark/configs/toy-sum.json", "why": "a dummy"})
+    b["workloads"].append({"name": "toy-cell", "config": "toy-sum", "traffic": "closed1-toy", "chips": 1, "why": "a dummy"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
+
+    cell = small_cell("toy-cell", tmp_path)
+    assert cell.config["size"] == 64
+    line, checks = harness.run(cell, 2**34 + 1, 0.1, False, "cpu", time.perf_counter())
+    assert line["correct"] is True and checks == [("sums_wrong", 0, 0)]
+    assert "setup_s" in line["metrics"] and "prove_s" in line["metrics"]
+    kind = harness.load_module("jobs", "toy", tmp_path)
+    for _, patches in kind_tests("toy", tmp_path).faults(kind):
+        with monkeypatch.context() as m:
+            for obj, attr, value in patches:
+                m.setattr(obj, attr, value)
+            assert harness.run(cell, 2**34 + 1, 0.1, False, "cpu", time.perf_counter())[0]["correct"] is False
 
 
 def test_run_without_a_card_fails_and_prints_no_result():

@@ -40,11 +40,11 @@ def test_loaded_modules_in_a_fresh_process():
     code = (
         "import json, sys, time\n"
         f"sys.path.insert(0, {str(harness.ROOT)!r})\n"
-        "from benchmark.reference import field, keccak, sumcheck\n"
+        "from benchmark.reference import field, gkr, keccak, sumcheck\n"
         "ref = sorted({m.split('.')[0] for m in sys.modules})\n"
         "from benchmark import harness, trace, yardstick, inputs\n"
-        "from benchmark.tests.conftest import small_cell\n"
-        "for name in ('sumcheck-bls381-n24-deg1', 'sumcheck-bls381-n24-prod2'):\n"
+        "from benchmark.tests.conftest import cells, small_cell\n"
+        "for name in cells():\n"
         "    harness.run(small_cell(name), 3, 0.05, False, 'cpu', time.perf_counter())\n"
         "print(json.dumps([ref, sorted({m.split('.')[0] for m in sys.modules})]))\n"
     )

@@ -63,3 +63,58 @@ def test_sumcheck_reference_equals_the_program(n, k):
     bad[n // 2][0] = (bad[n // 2][0] + 1) % F.P
     assert not RS.verify_rounds(claim, bad, Transcript())[0]
 
+
+
+def _matmul(n: int, seed: int):
+    """The benchmark's matrix-product circuit for the program and the
+    reference, and one statement's inputs."""
+    from zk_tpu_torch import Circuit
+
+    from benchmark.reference import gkr as RG
+
+    wiring = RG.matmul(n)
+    circuit = Circuit.from_arrays([tuple(t.numpy() for t in layer) for layer in wiring.layers], wiring.n_inputs)
+    return wiring, circuit, inputs.random_elements(inputs.generator(seed, "cpu"), 1, wiring.n_inputs)[0]
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_gkr_reference_equals_the_program(n):
+    from zk_tpu_torch import GKRProver, GKRVerifier
+    from zk_tpu_torch.fields import BLS12_381_FR as FR
+    from zk_tpu_torch.gkr import GKRError, gkr_proof_from_bytes, gkr_proof_to_bytes
+    from zk_tpu_torch.sumcheck import SumcheckError
+
+    from benchmark.jobs import gkr as J
+    from benchmark.reference import gkr as RG
+
+    wiring, circuit, x = _matmul(n, 200 + n)
+    data, out_bytes = RG.prove(wiring, x)
+    assert data == gkr_proof_to_bytes(FR, GKRProver.prove(FR, circuit, x)[0])
+    ints = [F.from_mont(v) for v in F.ints(x)]
+    dense = GKRProver.prove_dense(FR, circuit, ints, device="cpu")[0]
+    assert data == gkr_proof_to_bytes(FR, dense)
+
+    a, b = ints[: n * n], ints[n * n :]
+    c = [sum(a[i * n + k] * b[k * n + j] for k in range(n)) % F.P for i in range(n) for j in range(n)]
+    assert out_bytes == b"".join(v.to_bytes(F.N_BYTES, "big") for v in c)
+
+    assert RG.verify(wiring, x, data)
+    bad = J.tampered(data)
+    assert bad != data and not RG.verify(wiring, x, bad)
+    with pytest.raises((GKRError, SumcheckError)):
+        GKRVerifier.verify(FR, circuit, x, gkr_proof_from_bytes(FR, bad))
+
+
+def test_gkr_yardstick_counts_the_n2_circuit_by_hand():
+    from benchmark import yardstick as Y
+
+    layers = Y.matmul_layers(2)
+    assert layers == [(4, 0, 2, 3), (8, 8, 3, 3)]  # 4 sums over 8 products over 8 inputs
+    # per layer: witness, eq(r) 2^k_out - 2, eq(u) 2^3 - 2, 2 G for the phase
+    # tables, phase 1 3 x 7 + 3 x 6, phase 2 6 x 7 + 3 x 6 + 3 x 3, the line
+    # 8 x 1 + 4 x 2 + 2 x 3
+    add = 0 + 2 + 6 + 8 + (21 + 18) + (42 + 18 + 9) + 22
+    mul = 8 + 6 + 6 + 16 + (21 + 18) + (42 + 18 + 9) + 22
+    assert Y.gkr_needed_mults(layers) == (4 - 1) + add + mul == 315
+    elem = 64  # bytes of an element: 16 limbs, 4 bytes each
+    assert Y.gkr_bytes(layers, 16) == elem * (4 + 8 + 8) + elem * (4 + 5 * 8) + 8 * 4 + elem * (8 + 5 * 8) + 8 * 8

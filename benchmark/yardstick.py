@@ -67,3 +67,74 @@ def sumcheck_least_seconds(n_vars: int, degree: int, k: int, n_limbs16: int) -> 
     t_bytes = k * n_limbs16 * 4 * (1 << n_vars) / HBM_BYTES_PER_S
     t_ops = sumcheck_needed_mults(n_vars, degree, k) * mont_imads(n_limbs16) / IMAD_PER_S
     return max(t_bytes, t_ops)
+
+
+def matmul_layers(n: int) -> list[tuple[int, int, int, int]]:
+    """The shape of the n x n matrix-multiplication circuit, output layer
+    first: per layer (gates, mul gates, k_out, k_in).  One layer of n^3
+    products over 2 n^2 inputs, under log2 n layers of pairwise sums."""
+    lg = n.bit_length() - 1
+    adds = [(1 << k, 0, k, k + 1) for k in range(2 * lg, 3 * lg)]
+    return adds + [(n**3, n**3, 3 * lg, 2 * lg + 1)]
+
+
+def _eq_mults(k: int) -> int:
+    """Products of an eq table on k variables by doubling: a step on a
+    table of s > 1 entries takes s products (the first step's entries are
+    1 - r and r): 2^k - 2."""
+    return max((1 << k) - 2, 0)
+
+
+def gkr_needed_mults(layers: list[tuple[int, int, int, int]]) -> int:
+    """Field products a GKR prove of a layered add/mul circuit cannot avoid
+    (Libra's linear-time prover), from each layer's gates G, mul gates M,
+    k_out and k_in (s = 2^k_in):
+
+      the output claim W_0(r)             2^k_0 - 1 (a fold chain)
+      per layer:
+        the witness                       M (one product a mul gate)
+        eq(r) and eq(u)                   _eq_mults(k_out) + _eq_mults(k_in)
+        the phase tables                  G for phase 1 (eq(r, a) W(right))
+                                          and G for phase 2 (eq(r, a) eq(u, left))
+        phase 1, G1 W + A2, per pair      3 (G1 W at t = 0, 1, 2; a factor at
+                                          t = 2 is lo + 2 (hi - lo), additions)
+                                          and 3 folds (G1, W, A2) but after
+                                          the last round: 3 (s - 1) + 3 (s - 2)
+        phase 2, add_u (W(u) + W) +       6 (two products at three points),
+        W(u) mul_u W, per pair            3 folds (add_u, mul_u, W) but after
+                                          the last round, and W(u) times the
+                                          round's three sums: 6 (s - 1) +
+                                          3 (s - 2) + 3 k_in
+        the line q(t) = W(u + t (v - u))  folding W at u_j + t d_j keeps an
+                                          entry's j + 1 coefficients in t:
+                                          sum_j 2^(k_in - j) (j + 1)
+
+    The count is the protocol's, whatever implements it."""
+    total = (1 << layers[0][2]) - 1
+    for g, m, k_out, k_in in layers:
+        s = 1 << k_in
+        total += m + _eq_mults(k_out) + _eq_mults(k_in) + 2 * g
+        total += 3 * (s - 1) + 3 * (s - 2)
+        total += 6 * (s - 1) + 3 * (s - 2) + 3 * k_in
+        total += sum((1 << (k_in - j)) * (j + 1) for j in range(k_in))
+    return total
+
+
+def gkr_bytes(layers: list[tuple[int, int, int, int]], n_limbs16: int) -> int:
+    """Bytes a GKR prove reads or writes at least once (4 bytes a 16-bit
+    limb, as the program holds them): every level's wire values, and per
+    layer the eq(r) table, the four phase tables (G1, A2, add_u, mul_u)
+    and the eq(u) table; and the wiring, two 4-byte indices a gate."""
+    elem = 4 * n_limbs16
+    total = sum(elem << k_out for _, _, k_out, _ in layers) + (elem << layers[-1][3])
+    for g, _, k_out, k_in in layers:
+        total += elem * ((1 << k_out) + 5 * (1 << k_in)) + 8 * g
+    return total
+
+
+def gkr_least_seconds(layers: list[tuple[int, int, int, int]], n_limbs16: int) -> float:
+    """The least time a card at its peaks could take for one GKR prove: the
+    larger of ``gkr_bytes`` over the HBM rate and ``gkr_needed_mults``'
+    multiply-adds over the IMAD rate."""
+    return max(gkr_bytes(layers, n_limbs16) / HBM_BYTES_PER_S,
+               gkr_needed_mults(layers) * mont_imads(n_limbs16) / IMAD_PER_S)
