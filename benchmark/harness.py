@@ -167,6 +167,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, started
     A job that raises has no answer: the run is then not correct."""
     import torch
 
+    from benchmark import mesh as M
     from benchmark import trace as T
 
     kind = load_module("jobs", cell.config["job"], cell.root)
@@ -202,7 +203,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, started
     traced = T.stop(prof) if trace else None
     peak = None
     if on_cuda:
-        peak = torch.cuda.max_memory_allocated()
+        ranks = M.active()  # on several cards, the fullest card's peak (and every card's blocks freed)
+        peak = ranks.peak() if ranks is not None else torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()  # the window's blocks go back before the reference runs
 
     result = Run(cell, setup_s, (start, now), jobs, peak, traced)
@@ -228,9 +230,11 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str, started
     print(f"the check of {len(answered)} jobs took {time.perf_counter() - t0:.3f} s; {len(errors)} of "
           f"{len(jobs)} jobs failed", file=sys.stderr)
     found = forbidden_modules()  # last, after every call into the program, the check's too
+    if M.active() is not None:  # and in the ranks on the other cards
+        found += M.active().forbidden()
     if found:
         raise SystemExit(f"modules of JAX or the JAX package were loaded: {found}")
-    device_info = T.device_info(device, peak)
+    device_info = T.device_info(device, peak, cell.chips)
     if traced is not None:
         device_info.update(busy_s=traced.busy_s, window_s=traced.window_s)
     line = {

@@ -37,9 +37,12 @@ def test_benchmark_json_shape():
         assert c["file"].startswith("benchmark/") and c["reduced"] == json.loads((ROOT / c["file"]).read_text())["reduced"]
     names = [w["name"] for w in b["workloads"]]
     assert len(set(names)) == len(names)
+    files = {c["name"]: json.loads((ROOT / c["file"]).read_text()) for c in b["configs"]}
     for w in b["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] == 1
+        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
+        assert files[w["config"]].get("ranks", 1) == w["chips"]  # a kind runs one rank a card
         assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and len(w["why"]) <= 200
+    assert sum(w["chips"] == 4 for w in b["workloads"]) <= max(1, len(names) // 4)
     metrics = b["end_to_end"] + b["per_layer"]
     assert len({m["name"] for m in metrics}) == len(metrics)
     for m in b["end_to_end"]:

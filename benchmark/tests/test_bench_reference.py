@@ -118,3 +118,51 @@ def test_gkr_yardstick_counts_the_n2_circuit_by_hand():
     assert Y.gkr_needed_mults(layers) == (4 - 1) + add + mul == 315
     elem = 64  # bytes of an element: 16 limbs, 4 bytes each
     assert Y.gkr_bytes(layers, 16) == elem * (4 + 8 + 8) + elem * (4 + 5 * 8) + 8 * 4 + elem * (8 + 5 * 8) + 8 * 8
+
+
+def test_mesh_reference_equals_the_whole_table_and_the_sharded_program():
+    """At n = 12 over 4 gloo ranks: the ranks' reference (reference/
+    sumcheck_mesh.py) gives the bytes, challenges and finals of
+    ``sumcheck.prove`` on the whole tables, rebuilt here from the ranks'
+    seeds in the sharded layout, and ShardedSumcheckProver gives the same
+    bytes, challenges and oracle values."""
+    from benchmark import harness
+    from benchmark.tests.conftest import small_cell
+
+    cell = small_cell("sumcheck-bls381-n29-mesh4-prod2")
+    kind = harness.load_module("jobs", cell.config["job"])
+    seed, ranks, k, pool = 2**33 + 5, cell.config["ranks"], cell.traffic["factors"], cell.traffic["pool"]
+    state = kind.setup(cell.config, cell.traffic, seed, "cpu")
+    W = 1 << (cell.config["n_vars"] - 2)
+    shards = [inputs.random_elements(inputs.generator(seed * ranks + d, "cpu"), pool * k, W).reshape(pool, k, 16, W)
+              for d in range(ranks)]
+    whole = torch.stack(shards, dim=-1).reshape(pool, k, 16, W * ranks)  # entry w * R + d from rank d
+    for i in range(pool):
+        claim = RS.claimed_sum(list(whole[i]))
+        rps, chs, finals = RS.prove(list(whole[i]), cell.traffic["degree"], claim, Transcript())
+        ref = state.mesh.call("replay", i, None)[0]
+        assert state.claims[i] == claim
+        assert ref == {"bytes": RS.proof_bytes(claim, rps), "challenges": chs, "oracle": finals}
+        got = kind.job(state, i, harness.Clock(traced=False))
+        assert (got["bytes"], got["challenges"], got["oracle"], got["accepted"]) == (ref["bytes"], chs, finals, True)
+    state.mesh.stop()
+
+
+def test_mesh_roofline_least_time_by_hand():
+    """mesh_prove_roofline_pct's least time: one rank's 2^3-entry shards at
+    n = 5 over 4 ranks, product-bound."""
+    from benchmark import harness
+    from benchmark import trace as T
+    from benchmark import yardstick as Y
+    from benchmark.tests.conftest import small_cell
+
+    # degree 2, 2 factors: per pair 1 product at 3 points and 2 folds (none
+    # after the last round): 4 pairs 12 + 8, 2 pairs 6 + 4, 1 pair 3
+    assert Y.sumcheck_needed_mults(3, 2, 2) == 33
+    least = max(33 * 4 * 8 * 8 / (64 * 132 * 1.98e9), 2 * 16 * 4 * 8 / 3.35e12)
+    assert least == 33 * 256 / Y.IMAD_PER_S == Y.sumcheck_least_seconds(3, 2, 2, 16)
+    cell = small_cell("sumcheck-bls381-n29-mesh4-prod2")
+    cell.config["n_vars"] = 5
+    trace = T.Trace((0, 100), [(0, 10, "fold")], [(0, 10)], {"prove": [(0, 50)], "verify": [(50, 100)]}, [])
+    run = harness.Run(cell, 0.0, (0.0, 1.0), [], None, trace)
+    assert harness.load_module("metrics", "mesh_prove_roofline_pct").read(run) == 100.0 * least / 10e-9

@@ -157,8 +157,9 @@ def stop(prof) -> Trace:
     return Trace(w, ops, _merge([(s, e) for s, e, _ in ops]), dict(steps), host)
 
 
-def device_info(device: str, peak: int | None) -> dict:
-    """The contract's device record, with the card's power limit beside it."""
+def device_info(device: str, peak: int | None, count: int) -> dict:
+    """The contract's device record (``count`` cards used, ``peak`` the
+    fullest one's), with the first card's power limit beside it."""
     import torch
 
     if not device.startswith("cuda"):
@@ -166,7 +167,7 @@ def device_info(device: str, peak: int | None) -> dict:
     info = {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": 1,
+        "count": count,
         "memory_peak_bytes": peak,
     }
     try:
